@@ -1,0 +1,91 @@
+"""Request metadata (host-resident, survives switches by construction)."""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from enum import Enum
+
+import numpy as np
+
+
+class State(str, Enum):
+    WAITING = "waiting"
+    PREFILL = "prefill"
+    RUNNING = "running"
+    FINISHED = "finished"
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new_tokens: int
+    arrival_s: float = 0.0
+    # forced output length for replay-style benchmarks (paper §6.3 methodology)
+    forced_len: int | None = None
+    # SLO class name (serving/qos.py registry): "interactive" | "batch" |
+    # any registered class. Pure metadata to the device; the Scheduler's
+    # QosPolicy and ServeMetrics' per-class attainment read it.
+    slo_class: str = "batch"
+    state: State = State.WAITING
+    output: list[int] = field(default_factory=list)
+    prefill_pos: int = 0           # tokens already prefilled
+    # placement (layout-dependent, rewritten by a switch)
+    data_group: int = 0
+    owner_rank: int = 0            # EP: owning model-rank; TP: -1 (shared)
+    # pool the pages were allocated from, recorded AT ALLOC TIME and updated
+    # only by a switch's apply_assignments — releases always go here, never
+    # to a pool recomputed from whatever layout happens to be active
+    pool_rank: int = 0
+    slot: int | None = -1          # decode batch slot
+    slot_local: int = 0            # EP: slot within the owner rank
+    pages: list[int] = field(default_factory=list)
+    # prefix-cache keys (computed once per prompt; reset when the prompt is
+    # rewritten, e.g. teacher-forced re-prefill after preemption/failure)
+    page_hashes: tuple | None = None
+    full_hash: int | None = None
+    # finished early because the per-request page cap was reached
+    truncated: bool = False
+    # client abandoned the request (SSE disconnect / scripted fault): the
+    # Scheduler finishes it immediately with whatever it generated
+    canceled: bool = False
+    # absolute virtual-clock deadline (frontend `max_time`): past it the
+    # Scheduler truncates the request with whatever it generated
+    deadline_s: float | None = None
+    # fused-decode bookkeeping (engine decode_steps > 1): tokens dispatched
+    # on device but not yet fetched, and the remaining-token budget the
+    # DeviceDecodeState currently holds for this request's slot
+    inflight: int = 0
+    budget_dev: int = 0
+    # metrics
+    first_token_s: float | None = None
+    finish_s: float | None = None
+    # staging fast-path: the prompt as one int32 ndarray, so prefill rows
+    # are filled with a single vectorized slice assignment instead of a
+    # Python-list copy per chunk. Invalidation follows the same rule as
+    # `page_hashes`: reset whenever the prompt is rewritten (the length
+    # check below catches the only rewrite — teacher-forced folding, which
+    # strictly appends — and requeue clears it explicitly anyway).
+    _prompt_arr: object = field(default=None, repr=False, compare=False)
+
+    def prompt_array(self) -> "np.ndarray":
+        a = self._prompt_arr
+        if a is None or len(a) != len(self.prompt):
+            a = np.asarray(self.prompt, np.int32)
+            self._prompt_arr = a
+        return a
+
+    @property
+    def prompt_len(self) -> int:
+        return len(self.prompt)
+
+    @property
+    def kv_len(self) -> int:
+        return self.prefill_pos + len(self.output)
+
+    @property
+    def target_len(self) -> int:
+        return self.forced_len if self.forced_len is not None \
+            else self.max_new_tokens
+
+    def done(self) -> bool:
+        return len(self.output) >= self.target_len
