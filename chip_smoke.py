@@ -3,17 +3,20 @@
 NVIDIA GPU. Run from the root of a checkout: `python3 chip_smoke.py`.
 
 Phases (any failure exits non-zero):
-  1. build   — nvcc both CUDA kernels from `src/repro_torch/csrc/`, in
+  1. build   — nvcc all four CUDA sources from `src/repro_torch/csrc/`, in
                parallel, and print the build seconds and ptxas report;
   2. kernels — at the serving path's shapes (bf16, full qwen3-235b-a22b
                width, plus a Mixtral-shaped sliding-window case) hold each
-               kernel against its plain torch version on the card (attention
-               also in f32 at the same shapes, and its bf16 check must
-               reject a dropped page and a window one page too wide), and
-               time kernel, plain version, bound and one PyTorch library
-               call;
+               serving kernel against its plain torch version on the card
+               (attention also in f32 at the same shapes, and its bf16 check
+               must reject a dropped page and a window one page too wide),
+               and time kernel, plain version, bound and one PyTorch
+               library call;
   3. parity  — a small f32 MoE model served on the card (kernels) and on
-               the CPU (plain versions) must give the same logits and tokens;
+               the CPU (plain versions) must give the same logits and
+               tokens; on the card, live tp<->ep switches at steps 2, 5 and
+               9, monolithic and chunked, must leave its greedy tokens equal
+               to the never-switched run's;
   4. serve   — `MoebiusEngine` on qwen3-235b-a22b at full width with
                num_layers=4 (the one reduction), bf16, seeded random weights
                from `init_params` on the card: 8 greedy requests, prompts of
@@ -21,7 +24,22 @@ Phases (any failure exits non-zero):
                `ep`, both at G=2 ranks stacked on the one card. The kernels'
                launch counters must show that serving went through them, and
                the two layouts' first tokens must agree wherever the top-2
-               logit margin is clear of the bf16 tolerance.
+               logit margin is clear of the bf16 tolerance;
+  5. switch  — one engine on the same model and requests serves in `tp`,
+               switches live to `ep` (monolithic), serves, switches back to
+               `tp` layer-chunked (4 chunks with decode steps between them)
+               and serves to completion. The switch kernels' counters must
+               show the movers' launches, every live request's K/V and the
+               expert store must come through byte-exact, and the peak
+               device memory must stay under the card's. The ranks are
+               stacked on one card, so the exchange between them moves
+               through HBM, not NVLink: these are not multi-GPU switch
+               times;
+  6. switch kernels — the six switch kernels and their two one-row entry
+               points at the switch path's full-width shapes (4 layers and
+               both ranks folded into the expert dim; the page counts the
+               switch phase planned), each bit-equal to its plain version,
+               timed against bound, plain version and one PyTorch call.
 
 Prints the card's name and power limit and a JSON line of per-kernel
 numbers; the last line is the JSON object
@@ -338,20 +356,25 @@ def phase_kernels(results: dict) -> None:
 # phase 3: card (kernels) against CPU (plain versions) on a small f32 model
 # ---------------------------------------------------------------------------
 
+def parity_model():
+    """A small f32 MoE with the head dim the attention kernel takes."""
+    from repro_torch.configs import get_config
+    return get_config("qwen3-235b-a22b").reduced(
+        num_layers=2, d_model=128, num_heads=8, num_kv_heads=2, head_dim=64,
+        num_experts=8, top_k=2, d_expert=64, vocab_size=512,
+        capacity_factor=8.0)
+
+
 def phase_parity() -> None:
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core.layouts import pack_params
     from repro_torch.models.registry import init_params
     from repro_torch.serving.kvcache import CacheConfig
     from repro_torch.serving.steps import build_decode_pack, build_mixed_step
 
-    cfg = get_config("qwen3-235b-a22b").reduced(
-        num_layers=2, d_model=128, num_heads=8, num_kv_heads=2, head_dim=64,
-        num_experts=8, top_k=2, d_expert=64, vocab_size=512,
-        capacity_factor=8.0)
+    cfg = parity_model()
     cc = CacheConfig(page_size=16, pages_ep=16, max_pages_per_req=4)
     rng = np.random.default_rng(SEED)
     prompt = rng.integers(1, cfg.vocab_size, 40)
@@ -409,7 +432,7 @@ def first_token_logits(eng, reqs) -> "list":
     B = 2 if ex.active.slots_sharded else 1
     step = build_mixed_step(eng.cfg, (1, eng.G), ex.active, eng.cc, B,
                             Sq=chunk, return_logits=True)
-    pack = ex.pack
+    pack = ex._assemble_pack(ex.active)
     out = []
     for r in reqs:
         kv = torch.zeros_like(ex.kv_flat)
@@ -509,37 +532,62 @@ def host_syncs(prof, layout: str) -> None:
           f"{after_read / 1e3:.1f} ms", flush=True)
 
 
-def phase_serve(results: dict) -> None:
-    import numpy as np
-    import torch
+def timed_step(eng) -> tuple[float, bool, str]:
+    """One engine step: (ms, decode-only?, layout). A step ends in a host
+    read of its tokens, so the host clock times the device work."""
+    pre = eng.metrics.prefill_tokens
+    layout = str(eng.active)
+    t0 = time.perf_counter()
+    eng.step()
+    return ((time.perf_counter() - t0) * 1e3,
+            eng.metrics.prefill_tokens == pre, layout)
 
+
+def mean_ms(log, decode_only: bool = False) -> float:
+    ms = [t for t, dec, _ in log if dec or not decode_only]
+    return sum(ms) / len(ms) if ms else float("nan")
+
+
+def serve_model():
+    """qwen3-235b-a22b at full width, 4 layers, bf16. capacity_factor =
+    E / top_k: no layout ever drops a token, so TP and EP compute the same
+    function and their outputs are comparable (at repro's 1.25 the two
+    layouts drop different tokens by design)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import dispatch
-    from repro_torch.models.registry import init_params
-    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
     from repro_torch.serving.kvcache import CacheConfig
-    from repro_torch.serving.request import Request
-
-    # capacity_factor = E / top_k: no layout ever drops a token, so TP and
-    # EP compute the same function and their outputs are comparable (at
-    # repro's 1.25 the two layouts drop different tokens by design)
     base = get_config("qwen3-235b-a22b")
     cfg = base.replace(num_layers=4,
                        capacity_factor=base.num_experts / base.top_k)
+    return cfg, CacheConfig(page_size=16, pages_ep=256, max_pages_per_req=32)
+
+
+def serve_prompts(cfg) -> list:
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    return [(rng.integers(1, cfg.vocab_size, int(rng.integers(64, 385)))
+             .tolist()) for _ in range(8)]
+
+
+def phase_serve(results: dict) -> None:
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.request import Request
+
+    cfg, cc = serve_model()
     print(f"serve config: {cfg.name} full width, num_layers=4 (reduced from "
           f"94), d_model={cfg.d_model}, heads {cfg.num_heads}/"
           f"{cfg.num_kv_heads}, experts {cfg.num_experts} top-{cfg.top_k}, "
           f"d_expert={cfg.d_expert}, vocab={cfg.vocab_size}, "
           f"capacity_factor={cfg.capacity_factor}, bf16", flush=True)
-    cc = CacheConfig(page_size=16, pages_ep=256, max_pages_per_req=32)
     t0 = time.time()
     params = init_params(cfg, SEED, device="cuda")
     torch.cuda.synchronize()
     print(f"init_params on card: {time.time() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
-    rng = np.random.default_rng(SEED)
-    specs = [(rng.integers(1, cfg.vocab_size, int(rng.integers(64, 385)))
-              .tolist()) for _ in range(8)]
+    specs = serve_prompts(cfg)
     firsts, logits = {}, {}
     for layout in ("tp", "ep"):
         torch.cuda.reset_peak_memory_stats()
@@ -556,12 +604,15 @@ def phase_serve(results: dict) -> None:
         dispatch.reset_counts()
         t0 = time.time()
         steps = 0
+        step_log = []
         while eng.sched.has_work():
-            eng.step()
+            step_log.append(timed_step(eng))
             steps += 1
             check(steps < 2000, f"{layout}: engine made no progress")
         torch.cuda.synchronize()
         wall = time.time() - t0
+        results.setdefault("static_decode_ms", {})[layout] = mean_ms(
+            step_log, decode_only=True)
         n_att = dispatch.calls("paged_attention")
         n_gmm = dispatch.calls("grouped_matmul")
         disp = eng.metrics.dispatches
@@ -580,7 +631,9 @@ def phase_serve(results: dict) -> None:
               f"{disp} dispatches, {toks} tokens in {wall:.3f} s -> "
               f"{toks / wall:.2f} tok/s, mean step {wall / steps * 1e3:.2f} ms,"
               f" peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-              f"launches attention={n_att} gmm={n_gmm}", flush=True)
+              f"launches attention={n_att} gmm={n_gmm}, mean decode-only "
+              f"step {results['static_decode_ms'][layout]:.2f} ms",
+              flush=True)
         results.setdefault("launches", {})
         for k, n in (("paged_attention", n_att), ("grouped_matmul", n_gmm)):
             results["launches"][k] = results["launches"].get(k, 0) + n
@@ -626,6 +679,417 @@ def phase_serve(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: live switches on the card keep the small model's tokens
+# ---------------------------------------------------------------------------
+
+def phase_parity_switch() -> None:
+    """tp<->ep switches at steps 2, 5 and 9, monolithic and chunked, from
+    either start layout: the greedy tokens equal the never-switched run's
+    on the card (the port's own byte-identity oracle)."""
+    import numpy as np
+
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.kvcache import CacheConfig
+    from repro_torch.serving.request import Request
+
+    cfg = parity_model()
+    cc = CacheConfig(page_size=16, pages_ep=32, max_pages_per_req=8)
+    params = init_params(cfg, SEED, device="cuda")
+
+    def run(start, chunk=0, at=None):
+        rng = np.random.default_rng(SEED)
+        eng = MoebiusEngine(cfg, (1, 2), cc, params_global=params,
+                            ecfg=EngineConfig(start_layout=start,
+                                              ladder=(4, 8),
+                                              prefill_chunk=32,
+                                              chunk_layers=chunk))
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=rng.integers(
+                1, cfg.vocab_size, int(rng.integers(20, 61))).tolist(),
+                max_new_tokens=12, arrival_s=0.0))
+        i = 0
+        while eng.sched.has_work():
+            if i == at:
+                eng.execute_switch("ep" if eng.active == "tp" else "tp")
+            eng.step()
+            i += 1
+            check(i < 500, "parity switch: engine made no progress")
+        if at is not None:
+            check(len(eng.switch_records) == 1, f"no switch at step {at}")
+        return {r.rid: r.output for r in eng.finished}
+
+    base = run("tp")
+    check(run("ep") == base, "parity switch: static ep != static tp")
+    n = 0
+    for start in ("tp", "ep"):
+        for chunk in (0, 1):
+            for at in (2, 5, 9):
+                out = run(start, chunk, at)
+                check(out == base, f"parity switch: {start} chunk={chunk} "
+                                   f"at step {at} changed the tokens")
+                n += 1
+    print(f"parity switch: {n} switched runs (f32, G=2, monolithic and "
+          f"chunked, both directions) give the never-switched tokens",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: live switches at full width
+# ---------------------------------------------------------------------------
+
+SWITCH_KERNELS = ("gather_pages_rows", "scatter_pages_rows",
+                  "pack_peer_chunks", "pack_width_chunks",
+                  "interleave_shards", "interleave_width_shards")
+
+
+def kv_written(eng) -> dict:
+    """rid -> (L, 2, n, K, dh): each live request's K/V at its written
+    positions [0, n), read through the active layout's view (the pooled
+    view reassembles the heads from the representative ranks)."""
+    import torch
+
+    from repro_torch.core.layouts import group_info
+    cfg, cc, G = eng.cfg, eng.cc, eng.G
+    view = cc.view_shape(cfg, G, eng.active)
+    rep = group_info(cfg, G).kv_rep
+    out = {}
+    for r in eng.sched.live():
+        # the last sampled token's K/V is written when it is fed back
+        n = r.prefill_pos + max(len(r.output) - 1, 0)
+        if n == 0:
+            continue
+        kv = eng.kv_flat[r.data_group]
+        pages = torch.tensor(r.pages[:-(-n // cc.page_size)],
+                             device=kv.device)
+        if eng.active.kv_per_rank:
+            x = kv[r.owner_rank].view(view)[:, :, pages]
+        else:
+            x = torch.cat([kv[g].view(view)[:, :, pages]
+                           for g in range(0, G, rep)], dim=4)
+        out[r.rid] = x.reshape(view[0], 2, -1, cfg.num_kv_heads,
+                               cfg.dh)[:, :, :n].clone()
+    return out
+
+
+def check_kv_moved(before: dict, after: dict, what: str) -> int:
+    """Every request live on both sides reads the same K/V at the
+    positions written before the switch (page 0 is never a request's)."""
+    common = sorted(set(before) & set(after))
+    check(len(common) > 0, f"{what}: no live request to compare")
+    for rid in common:
+        n = before[rid].shape[2]
+        check(torch_equal(after[rid][:, :, :n], before[rid]),
+              f"{what}: request {rid} K/V differ after the switch")
+    return len(common)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def phase_switch(results: dict) -> None:
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.moe import (make_expert_layout, pack_experts,
+                                        pack_w13, unpack_experts, unpack_w13)
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.request import Request
+
+    cfg, cc = serve_model()
+    L, E = cfg.num_layers, cfg.num_experts
+    params = init_params(cfg, SEED, device="cuda")
+    eng = MoebiusEngine(cfg, (1, 2), cc, params_global=params,
+                        ecfg=EngineConfig(start_layout="tp",
+                                          layouts=("tp", "ep"),
+                                          prefill_chunk=128, seed=SEED))
+    del params                  # the engine holds the one copy it serves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    store_bytes = sum(v.numel() * v.element_size()
+                      for v in eng._experts.values())
+    t0 = time.time()
+    host = {k: v.cpu() for k, v in eng._experts.items()}
+    print("switch: the G=2 ranks are stacked on this one card, so the "
+          "exchange between them moves through HBM, not NVLink: these are "
+          "not multi-GPU switch times", flush=True)
+    print(f"switch: engine in tp, expert store {store_bytes / 1e9:.2f} GB "
+          f"copied to the host in {time.time() - t0:.2f} s; device "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for i, p in enumerate(serve_prompts(cfg)):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=32,
+                           arrival_s=0.0))
+    kv_bytes_page = (2 * L * cc.page_size * cfg.num_kv_heads * cfg.dh
+                     * cfg.param_dtype.itemsize)
+
+    def report(rec, n_kv, moved):
+        weights_s = rec.weights_s
+        nbytes = 2 * store_bytes + 2 * (rec.kv_pages + rec.delta_pages) \
+            * kv_bytes_page
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"switch {rec.direction}: pause_s={rec.pause_s:.4f} "
+              f"total_s={rec.total_s:.4f} plan_s={rec.plan_s:.4f} "
+              f"weights_s={weights_s:.4f} kv_s={rec.kv_s:.4f} "
+              f"kv_pages={rec.kv_pages} delta_pages={rec.delta_pages} "
+              f"chunks={rec.chunks} plan_width={rec.plan_width} "
+              f"live_requests={rec.live_requests}; {nbytes / 1e9:.2f} GB "
+              f"must move (expert store and planned K/V pages read and "
+              f"written once): bound {b_ms:.2f} ms, movers "
+              f"{(weights_s + rec.kv_s) * 1e3:.2f} ms = "
+              f"{(weights_s + rec.kv_s) * 1e3 / b_ms:.2f}x; launches "
+              f"{moved}; K/V of {n_kv} requests byte-equal", flush=True)
+
+    def counts():
+        return {k: dispatch.calls(k) for k in SWITCH_KERNELS}
+
+    def grew(c0):
+        return {k: dispatch.calls(k) - c0[k] for k in SWITCH_KERNELS}
+
+    dispatch.reset_counts()
+    log = []
+    SWITCH1, SWITCH2 = 6, 24
+    while len(log) < SWITCH1:
+        log.append(timed_step(eng) + ("tp before",))
+    # 1. monolithic tp -> ep, prefills still in flight
+    snap, c0 = kv_written(eng), counts()
+    eng.execute_switch("ep")
+    rec1, g1 = eng.switch_records[-1], grew(c0)
+    check(g1 == {"gather_pages_rows": 1, "scatter_pages_rows": 1,
+                 "pack_peer_chunks": 0, "pack_width_chunks": 0,
+                 "interleave_shards": L, "interleave_width_shards": L},
+          f"monolithic tp->ep launches {g1}")
+    n1 = check_kv_moved(snap, kv_written(eng), "tp->ep")
+    lay_tp, lay_ep = (make_expert_layout(E, 2, k) for k in ("tp", "ep"))
+    for li in range(L):
+        w13 = host["w13"][li].cuda()
+        check(torch_equal(eng._experts["w13"][li],
+                          pack_w13(unpack_w13(w13, lay_tp, E), lay_ep)),
+              f"tp->ep: w13 layer {li} differs from the ep packing")
+        w2 = host["w2"][li].cuda()
+        check(torch_equal(eng._experts["w2"][li], pack_experts(
+            unpack_experts(w2, lay_tp, 2, E), lay_ep, 2)),
+              f"tp->ep: w2 layer {li} differs from the ep packing")
+        del w13, w2
+    report(rec1, n1, g1)
+    while len(log) < SWITCH2:
+        log.append(timed_step(eng) + ("ep between",))
+    # 2. chunked ep -> tp, one layer per chunk, a decode step after each
+    snap, c0 = kv_written(eng), counts()
+    eng.ecfg.chunk_layers = 1
+    eng.execute_switch("tp")
+    rec2, g2 = eng.switch_records[-1], grew(c0)
+    W = 8                                   # the delta pass's plan width
+    delta_calls = g2["gather_pages_rows"] - L
+    check(rec2.chunks == L and g2["pack_peer_chunks"] == L
+          and g2["pack_width_chunks"] == L
+          and g2["interleave_shards"] == 0
+          and g2["interleave_width_shards"] == 0
+          and g2["scatter_pages_rows"] == g2["gather_pages_rows"]
+          and -(-rec2.delta_pages // (2 * W)) <= delta_calls
+          <= -(-rec2.delta_pages // W), f"chunked ep->tp launches {g2}, "
+          f"{rec2.chunks} chunks, {rec2.delta_pages} delta pages")
+    check(rec2.pause_s < rec2.total_s, "chunked: pause not below total")
+    n2 = check_kv_moved(snap, kv_written(eng), "ep->tp")
+    for k in ("w13", "w2"):
+        check(eng._experts[k].is_contiguous(), f"{k} store not contiguous")
+        for li in range(L):
+            check(torch_equal(eng._experts[k][li], host[k][li].cuda()),
+                  f"round trip: {k} layer {li} differs from the store "
+                  f"before the first switch")
+    report(rec2, n2, g2)
+    while eng.sched.has_work():
+        log.append(timed_step(eng) + ("tp after",))
+        check(len(log) < 2000, "switch: engine made no progress")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(peak < total, f"peak {peak} above the card's {total}")
+    check(len(eng.finished) == 8, f"switch: {len(eng.finished)}/8 done")
+    for r in eng.finished:
+        check(len(r.output) == 32 and all(
+            0 <= t < cfg.vocab_size for t in r.output),
+            f"switch: request {r.rid} output {r.output}")
+    launched = {k: dispatch.calls(k) for k in SWITCH_KERNELS}
+    check(all(n > 0 for n in launched.values()),
+          f"a switch kernel never launched: {launched}")
+    results.setdefault("launches", {}).update(launched)
+    results["plan_widths"] = (rec1.plan_width, rec2.plan_width)
+    static = results["static_decode_ms"]
+    for seg, layout in (("tp before", "tp"), ("ep between", "ep"),
+                        ("tp after", "tp")):
+        part = [x[:3] for x in log if x[3] == seg]
+        print(f"switch steps {seg}: {len(part)} steps, mean "
+              f"{mean_ms(part):.2f} ms, decode-only "
+              f"{sum(1 for x in part if x[1])} steps mean "
+              f"{mean_ms(part, decode_only=True):.2f} ms; static {layout} "
+              f"decode-only step (serve phase) {static[layout]:.2f} ms",
+              flush=True)
+    print(f"switch: 8/8 requests finished with 32 tokens; store round trip "
+          f"byte-equal; peak device memory {peak / 2**30:.2f} GiB of "
+          f"{total / 2**30:.2f} GiB; launches {launched}", flush=True)
+    del eng, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the switch kernels at full-width shapes
+# ---------------------------------------------------------------------------
+
+def copy_row(results, name, source, replaces, got, plain, kern, plain_fn,
+             lib_fn, nbytes) -> None:
+    """Check a copy kernel bit-equal to its plain version, time the three,
+    and store its row."""
+    import torch
+    check(got.shape == plain.shape and torch.equal(
+        got.view(torch.int16), plain.view(torch.int16)),
+        f"{name}: kernel differs from its plain version")
+    ms = cuda_ms(kern, iters=21)
+    plain_ms = cuda_ms(plain_fn, iters=21, warmup=1)
+    lib_ms = cuda_ms(lib_fn, iters=21)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"{name}: {nbytes / 1e9:.3f} GB read+written, bit-equal to plain; "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"bound_ms={b_ms:.4f} (bytes) = {b_ms / ms:.1%} of bound",
+          flush=True)
+    results[name] = dict(name=name, route="cuda", source=source,
+                         replaces=replaces, max_abs_err=0.0, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
+                         library_ms=lib_ms)
+
+
+def phase_switch_kernels(results: dict) -> None:
+    import torch
+
+    from repro_torch.core.layouts import group_info
+    from repro_torch.kernels.expert_reshard import kernel as erk
+    from repro_torch.kernels.expert_reshard import ref as err
+    from repro_torch.kernels.kv_pack import kernel as kvk
+    from repro_torch.kernels.kv_pack import ref as kvr
+
+    cfg, cc = serve_model()
+    G, L, D, I = 2, cfg.num_layers, cfg.d_model, cfg.d_expert
+    Ef = L * G * (cfg.num_experts // G)      # layers and ranks folded
+    Ih, es = I // G, 2
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf = torch.bfloat16
+    src_er = "src/repro_torch/csrc/expert_reshard.cu"
+    rep_er = "src/repro/kernels/expert_reshard/kernel.py"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=bf)
+
+    # w13: (Ef, 2I, D) -> (G, Ef, 2I/G, D) and back
+    x = randn(Ef, 2 * I, D)
+    p = torch.empty((G, Ef, 2 * Ih, D), dtype=bf, device="cuda")
+    erk.pack_peer_chunks_cuda(x, G, p)
+    plain = err.pack_peer_chunks_ref(x, G)
+    nb = 2 * x.numel() * es
+    copy_row(results, "pack_peer_chunks", src_er, f"{rep_er}:22", p, plain,
+             lambda: erk.pack_peer_chunks_cuda(x, G, p),
+             lambda: err.pack_peer_chunks_ref(x, G),
+             lambda: p.view(G, Ef, 2, Ih, D).copy_(
+                 x.view(Ef, 2, G, Ih, D).permute(2, 0, 1, 3, 4)), nb)
+    del plain
+    back = erk.interleave_shards_cuda(p)
+    check(torch.equal(back.view(torch.int16), x.view(torch.int16)),
+          "interleave_shards: round trip differs")
+    plain = err.interleave_shards_ref(p)
+    copy_row(results, "interleave_shards", src_er, f"{rep_er}:90", back,
+             plain, lambda: erk.interleave_shards_cuda(p, back),
+             lambda: err.interleave_shards_ref(p),
+             lambda: back.view(Ef, 2, G, Ih, D).copy_(
+                 p.view(G, Ef, 2, Ih, D).permute(1, 2, 0, 3, 4)), nb)
+    del x, p, back, plain
+    torch.cuda.empty_cache()
+    # w2: (Ef, D, I) -> (G, Ef, D, I/G) and back
+    x = randn(Ef, D, I)
+    p = torch.empty((G, Ef, D, Ih), dtype=bf, device="cuda")
+    erk.pack_width_chunks_cuda(x, G, p)
+    plain = err.pack_width_chunks_ref(x, G)
+    nb = 2 * x.numel() * es
+    copy_row(results, "pack_width_chunks", src_er, f"{rep_er}:48", p, plain,
+             lambda: erk.pack_width_chunks_cuda(x, G, p),
+             lambda: err.pack_width_chunks_ref(x, G),
+             lambda: p.copy_(x.view(Ef, D, G, Ih).permute(2, 0, 1, 3)), nb)
+    del plain
+    back = erk.interleave_width_shards_cuda(p)
+    check(torch.equal(back.view(torch.int16), x.view(torch.int16)),
+          "interleave_width_shards: round trip differs")
+    plain = err.interleave_width_shards_ref(p)
+    copy_row(results, "interleave_width_shards", src_er, f"{rep_er}:70",
+             back, plain, lambda: erk.interleave_width_shards_cuda(p, back),
+             lambda: err.interleave_width_shards_ref(p),
+             lambda: back.view(Ef, D, G, Ih).copy_(p.permute(1, 2, 0, 3)),
+             nb)
+    del x, p, back, plain
+    torch.cuda.empty_cache()
+
+    # KV pages at the plan widths the switch phase ran: the gather of the
+    # tp->ep switch (pooled view, every rank gathers every destination's
+    # pages: one shared index row of G * P1 pages), the scatter of the
+    # ep->tp switch (pooled view, G * P2 pages, the same on every rank)
+    P1, P2 = results["plan_widths"]
+    gi = group_info(cfg, G)
+    page, K, Kl, dh = cc.page_size, cfg.num_kv_heads, gi.kv_local, cfg.dh
+    pages_ep, pages_tp = cc.pages_ep, cc.pages_tp(cfg, G)
+    M_ep, M_tp = page * K * dh, page * Kl * dh
+    src_kv = "src/repro_torch/csrc/kv_pack.cu"
+    rep_kv = "src/repro/kernels/kv_pack/kernel.py"
+
+    def pages_idx(n, pages):
+        return (torch.randperm(pages - 1, generator=gen, device="cuda")[:n]
+                + 1).to(torch.int32)
+
+    pool = randn(G, 2 * L, pages_tp, M_tp)
+    idx = pages_idx(G * P1, pages_tp)
+    got = kvk.gather_pages_rows_cuda(pool, idx)
+    n = G * P1
+    copy_row(results, "gather_pages_rows", src_kv, f"{rep_kv}:51", got,
+             kvr.gather_pages_rows_ref(pool, idx),
+             lambda: kvk.gather_pages_rows_cuda(pool, idx),
+             lambda: kvr.gather_pages_rows_ref(pool, idx),
+             lambda: torch.index_select(pool, 2, idx),
+             2 * G * 2 * L * n * M_tp * es + 4 * n)
+    vals = randn(G, 2 * L, G * P2, M_tp)
+    idx = pages_idx(G * P2, pages_tp)
+    ref = kvr.scatter_pages_rows_ref(pool.clone(), idx, vals)
+    got = kvk.scatter_pages_rows_cuda(pool, idx, vals)
+    lib, il = pool.clone(), idx.long()
+    copy_row(results, "scatter_pages_rows", src_kv, f"{rep_kv}:82", got, ref,
+             lambda: kvk.scatter_pages_rows_cuda(pool, idx, vals),
+             lambda: kvr.scatter_pages_rows_ref(pool, idx, vals),
+             lambda: lib.index_copy_(2, il, vals),
+             2 * vals.numel() * es + 4 * idx.numel())
+    del pool, vals, ref, lib
+    # the one-row entry points on one layer's K pool of one rank, EP view
+    one = randn(pages_ep, page, K, dh)
+    idx = pages_idx(P1, pages_ep)
+    got = kvk.gather_pages_cuda(one, idx)
+    copy_row(results, "gather_pages", src_kv, f"{rep_kv}:27", got,
+             kvr.gather_pages_ref(one, idx),
+             lambda: kvk.gather_pages_cuda(one, idx),
+             lambda: kvr.gather_pages_ref(one, idx),
+             lambda: torch.index_select(one, 0, idx),
+             2 * P1 * M_ep * es + 4 * P1)
+    v1 = randn(P1, page, K, dh)
+    ref = kvr.scatter_pages_ref(one.clone(), idx, v1)
+    got = kvk.scatter_pages_cuda(one, idx, v1)
+    lib, il = one.clone(), idx.long()
+    copy_row(results, "scatter_pages", src_kv, f"{rep_kv}:112", got, ref,
+             lambda: kvk.scatter_pages_cuda(one, idx, v1),
+             lambda: kvr.scatter_pages_ref(one, idx, v1),
+             lambda: lib.index_copy_(0, il, v1),
+             2 * v1.numel() * es + 4 * P1)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -641,9 +1105,10 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels import build
     t0 = time.time()
-    logs = build.build_all(["paged_attention", "moe_gemm"])
+    logs = build.build_all(["paged_attention", "moe_gemm", "kv_pack",
+                            "expert_reshard"])
     print(f"build: {time.time() - t0:.2f} s", flush=True)
     for name, text in logs.items():
         for line in text.splitlines():
@@ -653,16 +1118,25 @@ def main() -> int:
     results: dict = {}
     phase_kernels(results)
     phase_parity()
+    phase_parity_switch()
     phase_serve(results)
+    phase_switch(results)
+    phase_switch_kernels(results)
 
+    # #3 and #6 serve only tests in repro: no main path launches them
+    off_path = ("gather_pages", "scatter_pages")
     rows = []
-    for name in ("paged_attention", "grouped_matmul"):
+    for name in ("paged_attention", "grouped_matmul", "gather_pages",
+                 "gather_pages_rows", "scatter_pages_rows", "scatter_pages",
+                 "pack_peer_chunks", "pack_width_chunks",
+                 "interleave_width_shards", "interleave_shards"):
         row = results[name]
-        row["launches"] = results["launches"][name]
+        row["launches"] = results["launches"].get(name, 0)
+        check(row["launches"] > 0 or name in off_path,
+              f"{name} never launched on its path")
         rows.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    check(all(r["launches"] > 0 for r in rows), "a kernel never launched")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)

@@ -177,15 +177,20 @@ def padded_vocab(V: int, multiple: int = 256) -> int:
 def _pack_moe(moe: dict, lay: ExpertLayout) -> dict:
     """Stacked (L, E, ...) expert weights -> rank-major (L, G, E_loc, ...),
     materialized: a strided view (TP's w2 would be one) makes every GEMM
-    call copy the layer's experts into a contiguous buffer."""
+    call copy the layer's experts into a contiguous buffer. A tree without
+    expert weights (an inactive layout's control plane) packs the rest."""
     out = dict(moe)
-    out["w13"] = pack_w13(moe["w13"], lay, lead=1).contiguous()
-    out["w2"] = pack_experts(moe["w2"], lay, width_axis=2,
-                             lead=1).contiguous()
+    if "w13" in moe:
+        out["w13"] = pack_w13(moe["w13"], lay, lead=1).contiguous()
+    if "w2" in moe:
+        out["w2"] = pack_experts(moe["w2"], lay, width_axis=2,
+                                 lead=1).contiguous()
     return out
 
 
-def _pad_vocab_tables(params: dict, V: int, Vp: int) -> dict:
+def pad_vocab_tables(params: dict, V: int, Vp: int) -> dict:
+    """Embedding and head tables padded to Vp rows (a tree already padded
+    passes through, sharing its tensors)."""
     out = dict(params)
     for k in ("embed", "lm_head"):
         if k in out and out[k].shape[0] == V and Vp > V:
@@ -198,8 +203,8 @@ def pack_params(cfg: ModelConfig, params: dict, layout: str, G: int,
     """Init-time global params -> stored form for `layout` on a G-rank
     group (rank-major experts; vocab padded to a multiple of 256)."""
     spec = get_layout(layout)
-    params = _pad_vocab_tables(params, cfg.vocab_size,
-                               padded_vocab(cfg.vocab_size))
+    params = pad_vocab_tables(params, cfg.vocab_size,
+                              padded_vocab(cfg.vocab_size))
     if cfg.is_moe and "layers" in params and "moe" in params["layers"]:
         lay = make_expert_layout(cfg.num_experts, expert_G or G,
                                  spec.expert_kind)

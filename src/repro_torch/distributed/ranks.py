@@ -53,8 +53,23 @@ def all_to_all(x: torch.Tensor) -> torch.Tensor:
     c = n // G
     if c * G != n:
         raise ValueError(f"all_to_all: dim 1 ({n}) not divisible by G={G}")
-    y = x.reshape(G, G, c, *x.shape[2:]).transpose(0, 1)
-    return y.reshape(G, n, *x.shape[2:])
+    send = x.reshape(G, G, c, *x.shape[2:])
+    return all_to_all_into(send, send.new_empty(send.shape)).reshape(
+        G, n, *x.shape[2:])
+
+
+def all_to_all_into(send: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """all_to_all with the blocks already split, written into `out`.
+
+    send (G_src, G_dst, *block): rank s's block for rank r at send[s, r];
+    out (G_dst, G_src, *block), any strides (a permuted view of a
+    preallocated buffer): out[r, s] = send[s, r]. The one copy is the
+    stand-in for the collective."""
+    if send.shape[:2] != out.shape[:2][::-1] or \
+            send.shape[2:] != out.shape[2:]:
+        raise ValueError(f"all_to_all_into: send {tuple(send.shape)} does "
+                         f"not match out {tuple(out.shape)}")
+    return out.copy_(send.transpose(0, 1))
 
 
 def psum_scatter(x: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,10 @@ class ExpertLayout:
     ep: int          # expert-parallel degree
     tp_inner: int    # width split within an expert group (G = ep * tp_inner)
 
+    @property
+    def is_pure_ep(self) -> bool:
+        return self.tp_inner == 1
+
 
 def make_expert_layout(num_experts: int, G: int, layout: str) -> ExpertLayout:
     if layout == "tp" or num_experts == 0:

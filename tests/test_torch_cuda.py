@@ -65,3 +65,121 @@ def test_grouped_matmul_kernel_matches_plain(card, dtype, tol):
     torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=tol,
                                atol=tol)
     assert not out[0].any() and not out[1, 3:].any()
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Copies move bits: compare them, not values (-0.0, NaN)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [24, 64])     # scalar and 16-byte paths
+def test_kv_pack_kernels_match_plain(card, dtype, M):
+    from repro_torch.kernels.kv_pack.ops import (gather_pages,
+                                                 gather_pages_rows,
+                                                 scatter_pages,
+                                                 scatter_pages_rows)
+    rng = np.random.default_rng(M)
+    G, R, pages, n, row0 = 3, 4, 11, 5, 2
+    pool = torch.from_numpy(rng.standard_normal((G, R + row0, pages, M)))
+    pool = pool.to(dtype)
+    idx = torch.from_numpy(np.stack([rng.permutation(pages)[:n]
+                                     for _ in range(G)])).int()
+    vals = torch.from_numpy(rng.standard_normal((G, R, n, M))).to(dtype)
+    dispatch.reset_counts()
+    # per-rank and shared index rows, from a row-sliced pool view
+    for ix in (idx, idx[0]):
+        ref = gather_pages_rows(pool[:, row0:], ix)
+        got = gather_pages_rows(pool.to(card)[:, row0:], ix.to(card))
+        torch.cuda.synchronize()
+        assert _bits_equal(got.cpu(), ref)
+        ref = scatter_pages_rows(pool.clone(), ix, vals, row0=row0)
+        got = scatter_pages_rows(pool.to(card), ix.to(card), vals.to(card),
+                                 row0=row0)
+        torch.cuda.synchronize()
+        assert _bits_equal(got.cpu(), ref)
+    assert dispatch.calls("gather_pages_rows") == 2
+    assert dispatch.calls("scatter_pages_rows") == 2
+    flat = pool[0, 0].reshape(pages, 2, M // 8, 4).contiguous()
+    got = gather_pages(flat.to(card), idx[0].to(card))
+    assert _bits_equal(got.cpu(), gather_pages(flat, idx[0]))
+    v1 = vals[0, 0].reshape(n, 2, M // 8, 4)
+    ref = scatter_pages(flat.clone(), idx[0], v1)
+    got = scatter_pages(flat.to(card), idx[0].to(card), v1.to(card))
+    torch.cuda.synchronize()
+    assert _bits_equal(got.cpu(), ref)
+    assert dispatch.calls("gather_pages") == dispatch.calls(
+        "scatter_pages") == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,E,I,D", [(2, 3, 24, 8), (4, 2, 64, 24)])
+def test_expert_reshard_kernels_match_plain(card, dtype, G, E, I, D):
+    from repro_torch.kernels.expert_reshard.ops import (
+        interleave_shards, interleave_width_shards, pack_peer_chunks,
+        pack_width_chunks)
+    rng = np.random.default_rng(I + D)
+    w13 = torch.from_numpy(rng.standard_normal((E, 2 * I, D))).to(dtype)
+    w2 = torch.from_numpy(rng.standard_normal((E, D, I))).to(dtype)
+    dispatch.reset_counts()
+    p13 = pack_peer_chunks(w13.to(card), G)
+    assert _bits_equal(p13.cpu(), pack_peer_chunks(w13, G))
+    p2 = pack_width_chunks(w2.to(card), G)
+    assert _bits_equal(p2.cpu(), pack_width_chunks(w2, G))
+    # the inverses, one of them into a preallocated destination
+    out = torch.empty_like(w13, device=card)
+    assert interleave_shards(p13, out=out) is out
+    assert _bits_equal(out.cpu(), w13)
+    assert _bits_equal(interleave_width_shards(p2).cpu(), w2)
+    torch.cuda.synchronize()
+    for op in ("pack_peer_chunks", "pack_width_chunks", "interleave_shards",
+               "interleave_width_shards"):
+        assert dispatch.calls(op) == 1, op
+
+
+@pytest.mark.parametrize("G", [2, 4])
+def test_switch_on_card_keeps_outputs(card, G):
+    """Monolithic and chunked tp<->ep switches of the tiny engine on the
+    card: the same tokens as the never-switched run on the card, through
+    the switch kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.kvcache import CacheConfig
+    from repro_torch.serving.request import Request
+    # tiny_moe's widths with the head dim the attention kernel takes
+    cfg = get_config("mixtral-8x7b").reduced(
+        num_heads=8, num_kv_heads=2, head_dim=64, d_model=128, num_layers=2,
+        num_experts=8, top_k=2, d_expert=64, vocab_size=256,
+        capacity_factor=8.0, param_dtype=torch.float32,
+        compute_dtype=torch.float32)
+    cc = CacheConfig(page_size=4, pages_ep=32, max_pages_per_req=16)
+    params = init_params(cfg, 0, device=card)
+
+    def run(chunk, switch_at=()):
+        rng = np.random.default_rng(0)
+        eng = MoebiusEngine(cfg, (1, G), cc, params_global=params,
+                            ecfg=EngineConfig(ladder=(4, 8), prefill_chunk=8,
+                                              chunk_layers=chunk),
+                            device=card)
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=list(rng.integers(
+                5, 200, int(rng.integers(3, 10)))), max_new_tokens=8,
+                arrival_s=0.0))
+        i = 0
+        while eng.sched.has_work():
+            if i in switch_at:
+                eng.execute_switch("ep" if eng.active == "tp" else "tp")
+            eng.step()
+            i += 1
+        return {r.rid: r.output for r in eng.finished}
+
+    base = run(0)
+    for chunk in (0, 1):
+        dispatch.reset_counts()
+        assert run(chunk, switch_at=(3, 7)) == base
+        for op in ("gather_pages_rows", "scatter_pages_rows",
+                   "pack_peer_chunks", "pack_width_chunks",
+                   "interleave_shards", "interleave_width_shards"):
+            assert dispatch.calls(op) > 0, op
