@@ -4,14 +4,19 @@ NVIDIA GPU. Run from the root of a checkout: `python3 chip_smoke.py`.
 
 Phases (any failure exits non-zero):
   1. build   — nvcc all four CUDA sources from `src/repro_torch/csrc/`, in
-               parallel, and print the build seconds and ptxas report;
+               parallel, and print the build seconds and ptxas report
+               (registers, spills, wgmma serialisation notes);
   2. kernels — at the serving path's shapes (bf16, full qwen3-235b-a22b
                width, plus a Mixtral-shaped sliding-window case) hold each
                serving kernel against its plain torch version on the card
                (attention also in f32 at the same shapes, and its bf16 check
                must reject a dropped page and a window one page too wide),
                and time kernel, plain version, bound and one PyTorch
-               library call;
+               library call. Beyond the serve's own shapes: attention at
+               `ep_decode_long` (kv 16384-32768, ~400 MB of live K/V, past
+               the 50 MB L2, so its bytes bound is HBM's) and the GEMM at
+               `w13_mixed` (C = 256 buffer rows per expert, a chunk-wide
+               dispatch, where operations and bytes meet);
   3. parity  — a small f32 MoE model served on the card (kernels) and on
                the CPU (plain versions) must give the same logits and
                tokens; on the card, live tp<->ep switches at steps 2, 5 and
@@ -71,22 +76,22 @@ def check(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
-    """Median of `iters` single-call CUDA-event timings, in ms."""
+    """Device time per call, in ms: CUDA events around `iters` back-to-back
+    calls after `warmup` calls, over the count. The queue stays full, so a
+    wrapper's host time hides behind the device work wherever that is the
+    longer (timing single calls would add the host's time to launch)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
     for _ in range(iters):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
         fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    times.sort()
-    return times[len(times) // 2]
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / iters
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -234,6 +239,8 @@ def phase_kernels(results: dict) -> None:
                                 kv_hi=6000, window=4096)),
         ("mixtral_window_chunk", dict(G=1, B=2, Sq=64, H=32, K=8,
                                       kv_lo=6000, kv_hi=6000, window=4096)),
+        ("ep_decode_long", dict(G=2, B=4, Sq=1, H=64, K=4, kv_lo=16384,
+                                kv_hi=32768)),
     ]
     worst = 0.0
     row = None
@@ -291,7 +298,8 @@ def phase_kernels(results: dict) -> None:
         print(f"attention {name}: max_abs_err={e_abs:.3e} "
               f"max_row_err={e_row:.3e} f32_max_abs_err={e32:.3e} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+              f"bound_ms={b_ms:.4f} ({b_by}) = {b_ms / ms:.1%} of bound, "
+              f"{nb / 1e6:.1f} MB", flush=True)
         if row is None:
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib_ms)
@@ -307,6 +315,7 @@ def phase_kernels(results: dict) -> None:
         ("w2_decode", dict(E=128, C=8, D=1536, W=4096)),
         ("w13_prefill", dict(E=128, C=80, D=4096, W=3072)),
         ("w2_prefill", dict(E=128, C=80, D=1536, W=4096)),
+        ("w13_mixed", dict(E=128, C=256, D=4096, W=3072)),
     ]
     worst = 0.0
     row = None
@@ -338,7 +347,8 @@ def phase_kernels(results: dict) -> None:
               f"experts_with_rows={active} "
               f"max_abs_err={e_abs:.3e} max_rel_err={e_rel:.3e} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} bmm_ms={lib_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+              f"bound_ms={b_ms:.4f} ({b_by}) = {b_ms / ms:.1%} of bound",
+              flush=True)
         if row is None:
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib_ms)
@@ -453,6 +463,17 @@ def first_token_logits(eng, reqs) -> "list":
     return out
 
 
+def kernel_group(name: str) -> str:
+    """The port's kernel a device kernel name belongs to: attention's split
+    and combine kernels (bf16) and serial kernel (f32), the GEMM's wgmma
+    (bf16) and FMA (f32) kernels."""
+    if "paged_attn_" in name:
+        return "paged_attention"
+    if "gmm_kernel" in name or "gmm_wgmma_kernel" in name:
+        return "grouped_matmul"
+    return "other"
+
+
 def profile_serve(eng, reqs, layout: str) -> None:
     """Where the time goes: serve the same requests once more under
     torch.profiler and split the device time by kernel; the busy share is
@@ -484,16 +505,13 @@ def profile_serve(eng, reqs, layout: str) -> None:
         return
     groups = {"paged_attention": 0.0, "grouped_matmul": 0.0, "other": 0.0}
     for name, t in by_name.items():
-        key = ("paged_attention" if "paged_attn_kernel" in name else
-               "grouped_matmul" if "gmm_kernel" in name else "other")
-        groups[key] += t
+        groups[kernel_group(name)] += t
     parts = ", ".join(f"{k} {v / 1e3:.1f} ms ({v / busy:.1%})"
                       for k, v in groups.items())
     print(f"profile {layout}: wall {wall_us / 1e3:.1f} ms (profiled), device "
           f"busy {busy / 1e3:.1f} ms = {busy / wall_us:.1%} of wall; {parts}")
     top = sorted(((t, n) for n, t in by_name.items()
-                  if "paged_attn_kernel" not in n and "gmm_kernel" not in n),
-                 reverse=True)[:6]
+                  if kernel_group(n) == "other"), reverse=True)[:6]
     for t, n in top:
         print(f"  other: {t / 1e3:8.2f} ms  {n[:100]}")
     host_syncs(prof, layout)
@@ -1112,7 +1130,8 @@ def main() -> int:
     print(f"build: {time.time() - t0:.2f} s", flush=True)
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(k in line for k in ("registers", "spill", "error",
+                                        "C7514")):
                 print(f"  {name}: {line.strip()}")
 
     results: dict = {}

@@ -49,6 +49,7 @@ from repro_torch.core.switch import (apply_assignments,
                                      pair_expert_layouts, pairs_to_plan,
                                      plan_switch, reshard_experts_direct,
                                      reshard_experts_pair)
+from repro_torch.kernels.dispatch import require_device
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.moe import make_expert_layout
 from repro_torch.serving.kvcache import (CacheConfig, PageAllocator,
@@ -117,13 +118,14 @@ class SwitchSession:
 
 class SwitchExecutor:
     """Selects and drives the movers for live switches on a `(Dd, G)` mesh
-    of stacked ranks on `device`."""
+    of stacked ranks on `device` (the card by default; the CPU only when
+    asked for)."""
 
     def __init__(self, cfg: ModelConfig, cc: CacheConfig, mesh, *,
-                 direct_reshard: bool = True, device="cpu"):
+                 direct_reshard: bool = True, device="cuda"):
         self.cfg, self.cc, self.mesh = cfg, cc, mesh
         self.Dd, self.G = mesh
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.Lk = num_kv_layers(cfg)
         self.direct_reshard = direct_reshard
         self.session: SwitchSession | None = None

@@ -1,6 +1,8 @@
 """ctypes wrapper of the CUDA grouped GEMM (csrc/moe_gemm.cu).
 
-Replaces repro/kernels/moe_gemm/kernel.py:grouped_matmul_pallas.
+Replaces repro/kernels/moe_gemm/kernel.py:grouped_matmul_pallas. The
+kernel's path follows the dtype alone: bf16 runs the TMA + wgmma kernel,
+f32 the IEEE fp32 FMA kernel.
 """
 from __future__ import annotations
 
@@ -50,6 +52,10 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
                                or not counts.is_contiguous()):
         raise ValueError("grouped_matmul: counts must be a contiguous (E,) "
                          "int32 tensor on x's device")
+    if x.dtype == torch.bfloat16 and (D % 8 or x.data_ptr() % 16
+                                      or w.data_ptr() % 16):
+        raise ValueError(f"grouped_matmul: the bf16 kernel's TMA needs D % 8 "
+                         f"== 0 and 16-byte aligned inputs (D={D})")
     W = w.shape[1]
     out = torch.empty((E, C, W), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or D == 0:

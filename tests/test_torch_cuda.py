@@ -67,6 +67,63 @@ def test_grouped_matmul_kernel_matches_plain(card, dtype, tol):
     assert not out[0].any() and not out[1, 3:].any()
 
 
+@pytest.mark.parametrize("H,K", [(32, 2), (32, 8)])        # rep 16 and 4
+@pytest.mark.parametrize("Sq,window", [(1, 0), (1, 300), (5, 0), (40, 200)])
+def test_paged_attention_bf16_split_kv(card, H, K, Sq, window):
+    """The bf16 split-KV kernel at the serving widths (page 16, dh 128):
+    long rows cut into many splits, a window that masks whole splits,
+    prefill tiles of 64 rows, against the plain version."""
+    from repro_torch.kernels.paged_attention.kernel import kv_split
+    rng = np.random.default_rng(H // K + Sq + window)
+    G, B, dh, page, maxp = 2, 3, 128, 16, 200
+    pages = G * B * maxp + 1
+    q = torch.from_numpy(rng.standard_normal((G, B, Sq, H, dh)))
+    kp = torch.from_numpy(rng.standard_normal((G, pages, page, K, dh)))
+    vp = torch.from_numpy(rng.standard_normal((G, pages, page, K, dh)))
+    q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    bt = torch.from_numpy(rng.permutation(pages - 1)[:G * B * maxp]
+                          .reshape(G, B, maxp) + 1).int()
+    kv = torch.from_numpy(rng.integers(Sq + 1, maxp * page + 1, (G, B)))
+    kv[0, 0] = maxp * page                       # the longest row
+    kv[1, 0] = Sq + 3                            # splits past the early exit
+    kv = kv.int()
+    qo = kv - Sq
+    assert kv_split(G, B, K, H // K * Sq, maxp, page)[1] > 1
+    args = (q, kp, vp, bt, kv)
+    ref = paged_attention(*args, q_offset=qo, window=window)
+    dispatch.reset_counts()
+    out = paged_attention(*(a.to(card) for a in args), q_offset=qo.to(card),
+                          window=window)
+    torch.cuda.synchronize()
+    assert dispatch.calls("paged_attention") == 1
+    torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("W", [130, 256])      # scalar and 16-byte stores
+@pytest.mark.parametrize("C", [1, 4, 8, 70, 300])
+def test_grouped_matmul_bf16_wgmma_shapes(card, C, W):
+    """The bf16 wgmma path at every N bucket edge: C = 300 takes two
+    passes of N = 256; W = 130 leaves a ragged 2-row W tile; expert 0
+    has no row and rows past counts hold garbage that must come out 0."""
+    rng = np.random.default_rng(C + W)
+    E, D = 6, 96                     # D = 64 + 32: a zero-filled depth edge
+    x = torch.from_numpy(rng.standard_normal((E, C, D))).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((E, W, D)) / D ** 0.5)
+    w = w.to(torch.bfloat16)
+    counts = torch.from_numpy(np.array(
+        [0, min(C, 3), C, max(C - 1, 0), min(C, 257), C // 2])).int()
+    ref = grouped_matmul_ref(x, w, counts)
+    dispatch.reset_counts()
+    out = grouped_matmul(x.to(card), w.to(card), counts.to(card))
+    torch.cuda.synchronize()
+    assert dispatch.calls("grouped_matmul") == 1
+    torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    past = torch.arange(C)[None, :] >= counts[:, None].long()
+    assert not out.cpu()[past].any()
+
+
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Copies move bits: compare them, not values (-0.0, NaN)."""
     return a.shape == b.shape and torch.equal(

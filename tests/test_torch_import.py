@@ -43,13 +43,14 @@ def test_chip_smoke_imports_no_jax_or_repro():
 
 
 def _entry_points():
+    from repro_torch.core.switch_exec import SwitchExecutor
     from repro_torch.models.registry import init_params
     from repro_torch.serving.engine import MoebiusEngine
     from repro_torch.serving.steps import build_mixed_step
-    return init_params, MoebiusEngine, build_mixed_step
+    return init_params, MoebiusEngine, build_mixed_step, SwitchExecutor
 
 
-@pytest.mark.parametrize("idx", [0, 1, 2])
+@pytest.mark.parametrize("idx", [0, 1, 2, 3])
 def test_entry_points_default_to_cuda(idx):
     fn = _entry_points()[idx]
     sig = inspect.signature(fn)
@@ -60,7 +61,8 @@ def test_entry_points_raise_without_card(monkeypatch):
     from repro_torch.serving.kvcache import CacheConfig
     from tests._torch_common import port_tiny_moe
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    init_params, MoebiusEngine, build_mixed_step = _entry_points()
+    init_params, MoebiusEngine, build_mixed_step, SwitchExecutor = \
+        _entry_points()
     cfg = port_tiny_moe()
     cc = CacheConfig(page_size=4, pages_ep=8, max_pages_per_req=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -69,6 +71,8 @@ def test_entry_points_raise_without_card(monkeypatch):
         build_mixed_step(cfg, (1, 1), "tp", cc, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MoebiusEngine(cfg, (1, 1), cc)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SwitchExecutor(cfg, cc, (1, 2))
     # the CPU runs only when asked for
     assert init_params(cfg, device="cpu")["embed"].device.type == "cpu"
 
