@@ -44,7 +44,12 @@ Phases (any failure exits non-zero):
                points at the switch path's full-width shapes (4 layers and
                both ranks folded into the expert dim; the page counts the
                switch phase planned), each bit-equal to its plain version,
-               timed against bound, plain version and one PyTorch call.
+               timed against bound, plain version and one PyTorch call,
+               with each kernel's and library call's time split into
+               device time (profiler) and host time per call; then the
+               one-row gather and scatter at `kv_pack_hbm` (n = 2048 pages
+               of 16 KB out of a 134 MB pool: past the L2, bytes set the
+               time), printed on a line of its own.
 
 Prints the card's name and power limit and a JSON line of per-kernel
 numbers; the last line is the JSON object
@@ -68,6 +73,8 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 BF16_TOL = 2e-2                  # DESIGN.md §14 bf16 tolerance
 F32_TOL = 1e-4                   # f32: kernel vs plain version
 SEED = 0
+KV_SRC = "src/repro_torch/csrc/kv_pack.cu"
+KV_REP = "src/repro/kernels/kv_pack/kernel.py"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -75,23 +82,78 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 25, warmup: int = 3, reps: int = 5) -> float:
     """Device time per call, in ms: CUDA events around `iters` back-to-back
-    calls after `warmup` calls, over the count. The queue stays full, so a
-    wrapper's host time hides behind the device work wherever that is the
-    longer (timing single calls would add the host's time to launch)."""
+    calls after `warmup` calls, over the count; the median of `reps` such
+    windows, so that one stall of the host (its CPU is shared) does not set
+    the number. The queue stays full, so a wrapper's host time hides behind
+    the device work wherever that is the longer (timing single calls would
+    add the host's time to launch)."""
     import torch
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(iters):
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e) / iters)
+    return sorted(out)[reps // 2]
+
+
+def split_times(fn, iters: int = 25, warmup: int = 3,
+                reps: int = 7) -> tuple[float, float]:
+    """(device_ms, host_us) of one call. device_ms: the CUDA time of the
+    kernels that `iters` back-to-back calls launch, from the device events
+    of torch.profiler (the kernels' own durations, without the gaps
+    between them), per call. host_us: the host clock around `iters` calls
+    with no synchronise, over the count (what one call costs the host to
+    enqueue), the median of `reps` such runs (the host's CPU is shared, so
+    single runs spread up to 2x)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
         fn()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / iters
+    hosts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        hosts.append((time.perf_counter() - t0) / iters * 1e6)
+    host_us = sorted(hosts)[reps // 2]
+    torch.cuda.synchronize()
+    # per kernel name: mean duration x launches per call. A sum over the
+    # count reads low when the profiler drops events: late in this script
+    # such sums came out 12-20% under the event-timed ms, some under the
+    # byte bound. A session that keeps no device event runs again, up to
+    # three times.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                t = getattr(e, "self_device_time_total", None)
+                t = t if t is not None else getattr(
+                    e, "self_cuda_time_total", 0.0)
+                tot, cnt = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (tot + t, cnt + 1)
+        dev_us = sum(tot / cnt * max(1, round(cnt / iters))
+                     for tot, cnt in by_name.values())
+        if dev_us > 0:
+            return dev_us / 1e3, host_us
+    raise RuntimeError("chip_smoke check failed: the profiler recorded no "
+                       "device time in three sessions")
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -962,6 +1024,7 @@ def phase_switch(results: dict) -> None:
 def copy_row(results, name, source, replaces, got, plain, kern, plain_fn,
              lib_fn, nbytes) -> None:
     """Check a copy kernel bit-equal to its plain version, time the three,
+    split the kernel's and the library call's time into device and host,
     and store its row."""
     import torch
     check(got.shape == plain.shape and torch.equal(
@@ -970,27 +1033,31 @@ def copy_row(results, name, source, replaces, got, plain, kern, plain_fn,
     ms = cuda_ms(kern, iters=21)
     plain_ms = cuda_ms(plain_fn, iters=21, warmup=1)
     lib_ms = cuda_ms(lib_fn, iters=21)
+    dev_ms, host_us = split_times(kern)
+    lib_dev_ms, lib_host_us = split_times(lib_fn)
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"{name}: {nbytes / 1e9:.3f} GB read+written, bit-equal to plain; "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
           f"bound_ms={b_ms:.4f} (bytes) = {b_ms / ms:.1%} of bound",
           flush=True)
+    print(f"{name} split: device_ms={dev_ms:.4f} host_us={host_us:.2f}; "
+          f"library device_ms={lib_dev_ms:.4f} host_us={lib_host_us:.2f}",
+          flush=True)
     results[name] = dict(name=name, route="cuda", source=source,
                          replaces=replaces, max_abs_err=0.0, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
-                         library_ms=lib_ms)
+                         library_ms=lib_ms, device_ms=dev_ms,
+                         host_us=host_us, library_device_ms=lib_dev_ms,
+                         library_host_us=lib_host_us)
 
 
 def phase_switch_kernels(results: dict) -> None:
     import torch
 
-    from repro_torch.core.layouts import group_info
     from repro_torch.kernels.expert_reshard import kernel as erk
     from repro_torch.kernels.expert_reshard import ref as err
-    from repro_torch.kernels.kv_pack import kernel as kvk
-    from repro_torch.kernels.kv_pack import ref as kvr
 
-    cfg, cc = serve_model()
+    cfg, _ = serve_model()
     G, L, D, I = 2, cfg.num_layers, cfg.d_model, cfg.d_expert
     Ef = L * G * (cfg.num_experts // G)      # layers and ranks folded
     Ih, es = I // G, 2
@@ -1048,17 +1115,34 @@ def phase_switch_kernels(results: dict) -> None:
     del x, p, back, plain
     torch.cuda.empty_cache()
 
-    # KV pages at the plan widths the switch phase ran: the gather of the
-    # tp->ep switch (pooled view, every rank gathers every destination's
-    # pages: one shared index row of G * P1 pages), the scatter of the
-    # ep->tp switch (pooled view, G * P2 pages, the same on every rank)
-    P1, P2 = results["plan_widths"]
+    kv_pack_table(results, *results["plan_widths"])
+    kv_pack_hbm(results)
+
+
+def kv_pack_table(results: dict, P1: int, P2: int) -> None:
+    """#3-#6 at the kernel table's shapes. KV pages at the plan widths the
+    switch phase ran: the gather of the tp->ep switch (pooled view, every
+    rank gathers every destination's pages: one shared index row of G * P1
+    pages), the scatter of the ep->tp switch (pooled view, G * P2 pages,
+    the same on every rank); the one-row entry points on one layer's K pool
+    of one rank, EP view, P1 pages."""
+    import torch
+
+    from repro_torch.core.layouts import group_info
+    from repro_torch.kernels.kv_pack import kernel as kvk
+    from repro_torch.kernels.kv_pack import ref as kvr
+
+    cfg, cc = serve_model()
+    G, L, es = 2, cfg.num_layers, 2
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     gi = group_info(cfg, G)
     page, K, Kl, dh = cc.page_size, cfg.num_kv_heads, gi.kv_local, cfg.dh
     pages_ep, pages_tp = cc.pages_ep, cc.pages_tp(cfg, G)
     M_ep, M_tp = page * K * dh, page * Kl * dh
-    src_kv = "src/repro_torch/csrc/kv_pack.cu"
-    rep_kv = "src/repro/kernels/kv_pack/kernel.py"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
 
     def pages_idx(n, pages):
         return (torch.randperm(pages - 1, generator=gen, device="cuda")[:n]
@@ -1068,7 +1152,7 @@ def phase_switch_kernels(results: dict) -> None:
     idx = pages_idx(G * P1, pages_tp)
     got = kvk.gather_pages_rows_cuda(pool, idx)
     n = G * P1
-    copy_row(results, "gather_pages_rows", src_kv, f"{rep_kv}:51", got,
+    copy_row(results, "gather_pages_rows", KV_SRC, f"{KV_REP}:51", got,
              kvr.gather_pages_rows_ref(pool, idx),
              lambda: kvk.gather_pages_rows_cuda(pool, idx),
              lambda: kvr.gather_pages_rows_ref(pool, idx),
@@ -1079,17 +1163,16 @@ def phase_switch_kernels(results: dict) -> None:
     ref = kvr.scatter_pages_rows_ref(pool.clone(), idx, vals)
     got = kvk.scatter_pages_rows_cuda(pool, idx, vals)
     lib, il = pool.clone(), idx.long()
-    copy_row(results, "scatter_pages_rows", src_kv, f"{rep_kv}:82", got, ref,
+    copy_row(results, "scatter_pages_rows", KV_SRC, f"{KV_REP}:82", got, ref,
              lambda: kvk.scatter_pages_rows_cuda(pool, idx, vals),
              lambda: kvr.scatter_pages_rows_ref(pool, idx, vals),
              lambda: lib.index_copy_(2, il, vals),
              2 * vals.numel() * es + 4 * idx.numel())
     del pool, vals, ref, lib
-    # the one-row entry points on one layer's K pool of one rank, EP view
     one = randn(pages_ep, page, K, dh)
     idx = pages_idx(P1, pages_ep)
     got = kvk.gather_pages_cuda(one, idx)
-    copy_row(results, "gather_pages", src_kv, f"{rep_kv}:27", got,
+    copy_row(results, "gather_pages", KV_SRC, f"{KV_REP}:27", got,
              kvr.gather_pages_ref(one, idx),
              lambda: kvk.gather_pages_cuda(one, idx),
              lambda: kvr.gather_pages_ref(one, idx),
@@ -1099,11 +1182,81 @@ def phase_switch_kernels(results: dict) -> None:
     ref = kvr.scatter_pages_ref(one.clone(), idx, v1)
     got = kvk.scatter_pages_cuda(one, idx, v1)
     lib, il = one.clone(), idx.long()
-    copy_row(results, "scatter_pages", src_kv, f"{rep_kv}:112", got, ref,
+    copy_row(results, "scatter_pages", KV_SRC, f"{KV_REP}:112", got, ref,
              lambda: kvk.scatter_pages_cuda(one, idx, v1),
              lambda: kvr.scatter_pages_ref(one, idx, v1),
              lambda: lib.index_copy_(0, il, v1),
              2 * v1.numel() * es + 4 * P1)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kv_pack_hbm(results: dict) -> None:
+    """#3 and #6 where bytes, not a launch, set the time: one single-pool
+    (pages, page, K, dh) of 8192 pages of 16 x 4 x 128 bf16 (134 MB, past
+    the 50 MB L2), n = 2048 distinct random pages (33.5 MB each way). Calls
+    rotate over four disjoint page sets (and, for the scatter, four value
+    buffers), so no call finds its sources in L2 from the one before."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.kv_pack import kernel as kvk
+    from repro_torch.kernels.kv_pack import ref as kvr
+    pages, page, K, dh, n, sets = 8192, 16, 4, 128, 2048, 4
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    bf = torch.bfloat16
+    pool = torch.randn((pages, page, K, dh), generator=gen, device="cuda",
+                       dtype=bf)
+    idxs = list(torch.randperm(pages, generator=gen, device="cuda")
+                .to(torch.int32).view(sets, n).unbind())
+    idxs = [i.contiguous() for i in idxs]
+    longs = [i.long() for i in idxs]
+    vals = [torch.randn((n, page, K, dh), generator=gen, device="cuda",
+                        dtype=bf) for _ in range(sets)]
+    nbytes = 2 * n * page * K * dh * 2 + 4 * n
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {}
+    got = kvk.gather_pages_cuda(pool, idxs[0])
+    check(torch.equal(got.view(torch.int16),
+                      kvr.gather_pages_ref(pool, idxs[0]).view(torch.int16)),
+          "kv_pack_hbm gather_pages: kernel differs from its plain version")
+    ref = kvr.scatter_pages_ref(pool.clone(), idxs[0], vals[0])
+    lib = pool.clone()
+    check(torch.equal(kvk.scatter_pages_cuda(lib, idxs[0], vals[0])
+                      .view(torch.int16), ref.view(torch.int16)),
+          "kv_pack_hbm scatter_pages: kernel differs from its plain version")
+    del got, ref
+    k = itertools.count()
+
+    def nxt():
+        return next(k) % sets
+
+    fns = {
+        "gather_pages": (lambda: kvk.gather_pages_cuda(pool, idxs[nxt()]),
+                         lambda: torch.index_select(pool, 0, idxs[nxt()]),
+                         "index_select"),
+        "scatter_pages": (lambda: (lambda j: kvk.scatter_pages_cuda(
+                              pool, idxs[j], vals[j]))(nxt()),
+                          lambda: (lambda j: lib.index_copy_(
+                              0, longs[j], vals[j]))(nxt()),
+                          "index_copy_"),
+    }
+    for name, (kern, lib_fn, lib_name) in fns.items():
+        ms, lib_ms = cuda_ms(kern), cuda_ms(lib_fn)
+        dev_ms, host_us = split_times(kern)
+        lib_dev_ms, lib_host_us = split_times(lib_fn)
+        out[name] = dict(ms=ms, device_ms=dev_ms, host_us=host_us,
+                         library=lib_name, library_ms=lib_ms,
+                         library_device_ms=lib_dev_ms,
+                         library_host_us=lib_host_us, bound_ms=b_ms,
+                         share_of_bound=b_ms / ms,
+                         device_share_of_bound=b_ms / dev_ms)
+    results["kv_pack_hbm"] = out
+    print("kv_pack_hbm: " + json.dumps(
+        {"pages": pages, "n": n, "page_bytes": page * K * dh * 2,
+         "bytes": nbytes, **out}), flush=True)
+    del pool, idxs, longs, vals, lib
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -170,6 +170,76 @@ def test_kv_pack_kernels_match_plain(card, dtype, M):
         "scatter_pages") == 1
 
 
+KV_SPLIT_CASES = {
+    # name: (G, R, pages, n, M, out-of-range indices, misaligned base)
+    "page_16k": (1, 1, 40, 1, 16 * 4 * 128, False, False),   # many pieces
+    "ragged_tail": (2, 3, 9, 4, 5000, False, False),   # 1 KB pieces + a tail
+    "n_1": (2, 2, 7, 1, 4096, False, False),
+    "several_passes": (2, 8, 310, 300, 1024, False, False),  # > 4224 pieces
+    "out_of_range": (2, 3, 11, 5, 2048, True, False),
+    "scalar_m24": (2, 3, 11, 5, 24, False, True),     # base off 16 bytes
+    "run_m20": (2, 3, 11, 5, 20, False, False),  # bf16: 40-byte runs
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(KV_SPLIT_CASES))
+def test_kv_pack_piece_split_matches_plain(card, dtype, case):
+    """The piece split's edges, bit-exact against the torch walk of the
+    same pieces (ref.py, which the CPU tests hold against repro) and, with
+    every index in range, against the plain version: the row pair, and the
+    one-row pair where G = R = 1."""
+    from repro_torch.kernels.kv_pack.ops import (gather_pages,
+                                                 gather_pages_rows,
+                                                 scatter_pages,
+                                                 scatter_pages_rows)
+    from repro_torch.kernels.kv_pack.ref import (
+        gather_pages_rows_pieces_ref, scatter_pages_rows_pieces_ref)
+    G, R, pages, n, M, oob, misalign = KV_SPLIT_CASES[case]
+    rng = np.random.default_rng(M + n)
+    row0 = 1 if R > 1 else 0
+    pool = torch.from_numpy(rng.standard_normal((G, R + row0, pages, M)))
+    pool = pool.to(dtype)
+    idx = np.stack([rng.permutation(pages)[:n] for _ in range(G)])
+    if oob:
+        idx[0, 1], idx[-1, -1] = -1, pages
+    idx = torch.from_numpy(idx.astype(np.int32))
+    vals = torch.from_numpy(rng.standard_normal((G, R, n, M))).to(dtype)
+    dpool = pool.to(card)
+    if misalign:     # the element-width path: the same values one element
+        # past a 16-byte boundary
+        buf = torch.empty(dpool.numel() + 1, dtype=dtype, device=card)
+        dpool = buf[1:].view(dpool.shape).copy_(dpool)
+        assert dpool.data_ptr() % 16
+    dispatch.reset_counts()
+    view = dpool[:, row0:]
+    got = gather_pages_rows(view, idx.to(card))
+    want = gather_pages_rows_pieces_ref(pool[:, row0:], idx)
+    torch.cuda.synchronize()
+    assert _bits_equal(got.cpu(), want)
+    if not oob:
+        assert _bits_equal(want, gather_pages_rows(pool[:, row0:], idx))
+    got = scatter_pages_rows(dpool, idx.to(card), vals.to(card), row0=row0)
+    want = scatter_pages_rows_pieces_ref(pool.clone(), idx, vals, row0=row0)
+    torch.cuda.synchronize()
+    assert _bits_equal(got.cpu(), want)
+    if not oob:
+        assert _bits_equal(want, scatter_pages_rows(pool.clone(), idx, vals,
+                                                    row0=row0))
+    assert dispatch.calls("gather_pages_rows") == 1
+    assert dispatch.calls("scatter_pages_rows") == 1
+    if G == R == 1:
+        flat = pool[0, row0].reshape(pages, 16, 4, -1).contiguous()
+        got = gather_pages(flat.to(card), idx[0].to(card))
+        assert _bits_equal(got.cpu(), gather_pages(flat, idx[0]))
+        v1 = vals[0, 0].reshape(n, *flat.shape[1:])
+        got = scatter_pages(flat.to(card), idx[0].to(card), v1.to(card))
+        torch.cuda.synchronize()
+        assert _bits_equal(got.cpu(), scatter_pages(flat.clone(), idx[0], v1))
+        assert dispatch.calls("gather_pages") == 1
+        assert dispatch.calls("scatter_pages") == 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,E,I,D", [(2, 3, 24, 8), (4, 2, 64, 24)])
 def test_expert_reshard_kernels_match_plain(card, dtype, G, E, I, D):
