@@ -29,7 +29,9 @@ Phases (any failure exits non-zero):
                `ep`, both at G=2 ranks stacked on the one card. The kernels'
                launch counters must show that serving went through them, and
                the two layouts' first tokens must agree wherever the top-2
-               logit margin is clear of the bf16 tolerance;
+               logit margin is clear of the bf16 tolerance; then a decode
+               window on the same engine (8 more requests, 128 decode-only
+               steps at the same rung) times the eager per-token step;
   5. switch  — one engine on the same model and requests serves in `tp`,
                switches live to `ep` (monolithic), serves, switches back to
                `tp` layer-chunked (4 chunks with decode steps between them)
@@ -50,6 +52,28 @@ Phases (any failure exits non-zero):
                one-row gather and scatter at `kv_pack_hbm` (n = 2048 pages
                of 16 KB out of a 134 MB pool: past the L2, bytes set the
                time), printed on a line of its own.
+  7. graphs  — the serve phase's requests again with every decode step a
+               CUDA graph captured at warmup (core/residency.py): single
+               steps, then the fused loop of 8 (`decode_steps=8`), per
+               layout. Greedy tokens must equal the eager serve's, every
+               graph must hold attention and GEMM launches, and nothing may
+               be captured after warmup; prints tok/s, the decode-only step
+               per token and the profiled device idle share beside the
+               eager serve's, the same decode window as the serve phase's
+               (128 single steps or 16 fused iterations), and the EP decode
+               buffer at static capacity;
+  8. policy  — one engine serves a bursty trace (serving/workloads.py) on a
+               virtual clock and switches on its own (the policy, T_high
+               and T_low set from the trace, printed beside
+               `calibrate_threshold` for the H100). Both layouts' graphs on
+               both banks are captured at warmup; the first switch runs
+               monolithic (in place: the store keeps its address), later
+               ones in chunks of 2 layers (onto the second bank). It must
+               switch tp->ep and ep->tp with live K/V, keep the store and
+               every live request's K/V byte-exact through each switch,
+               capture nothing after warmup, and finish every request at
+               its length; prints each switch's pause and total, the graph
+               pool and the second bank as shares of the card's memory.
 
 Prints the card's name and power limit and a JSON line of per-kernel
 numbers; the last line is the JSON object
@@ -536,10 +560,11 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_serve(eng, reqs, layout: str) -> None:
+def profile_serve(eng, reqs, layout: str) -> dict:
     """Where the time goes: serve the same requests once more under
     torch.profiler and split the device time by kernel; the busy share is
-    kernel time over wall time (one stream, so kernels do not overlap)."""
+    kernel time over wall time (one stream, so kernels do not overlap).
+    Returns the device's idle and timeline ms (host_syncs)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -562,9 +587,8 @@ def profile_serve(eng, reqs, layout: str) -> None:
             t = getattr(e, "self_cuda_time_total", 0.0)
         by_name[e.name] = by_name.get(e.name, 0.0) + t
     busy = sum(by_name.values())
-    if busy <= 0:
-        print(f"profile {layout}: the profiler recorded no device time")
-        return
+    check(busy > 0, f"profile {layout}: the profiler recorded no device "
+                    f"time")
     groups = {"paged_attention": 0.0, "grouped_matmul": 0.0, "other": 0.0}
     for name, t in by_name.items():
         groups[kernel_group(name)] += t
@@ -576,10 +600,10 @@ def profile_serve(eng, reqs, layout: str) -> None:
                   if kernel_group(n) == "other"), reverse=True)[:6]
     for t, n in top:
         print(f"  other: {t / 1e3:8.2f} ms  {n[:100]}")
-    host_syncs(prof, layout)
+    return host_syncs(prof, layout)
 
 
-def host_syncs(prof, layout: str) -> None:
+def host_syncs(prof, layout: str) -> dict:
     """Device idle that follows the host's reads of a device value (the MoE
     layers size their expert buffers from the step's largest load, one read
     per layer): each read drains the queue, and the card then waits for the
@@ -592,8 +616,7 @@ def host_syncs(prof, layout: str) -> None:
     reads = sorted(e.time_range.end for e in prof.events()
                    if e.device_type == DeviceType.CPU
                    and e.name == "aten::_local_scalar_dense")
-    if not spans:
-        return
+    check(bool(spans), f"profile {layout}: no device span")
     gaps, end = [], spans[0][1]
     for s, e in spans[1:]:
         if s > end:
@@ -610,6 +633,7 @@ def host_syncs(prof, layout: str) -> None:
           f"{(end - spans[0][0]) / 1e3:.1f} ms device timeline; {len(reads)} "
           f"host reads of device values, idle gaps that follow them "
           f"{after_read / 1e3:.1f} ms", flush=True)
+    return dict(idle_ms=idle / 1e3, timeline_ms=(end - spans[0][0]) / 1e3)
 
 
 def timed_step(eng) -> tuple[float, bool, str]:
@@ -626,6 +650,47 @@ def timed_step(eng) -> tuple[float, bool, str]:
 def mean_ms(log, decode_only: bool = False) -> float:
     ms = [t for t, dec, _ in log if dec or not decode_only]
     return sum(ms) / len(ms) if ms else float("nan")
+
+
+def decode_window(eng, cfg, N: int, what: str) -> dict:
+    """The decode-only step per token over a longer window than the serve's
+    (whose fused N=8 serve has only a few decode-only iterations): 8 more
+    requests of 64-token prompts, 129 new tokens each, at the same rung
+    (B=8) on the same engine, so 128 single steps or 16 fused iterations
+    of 8 decode only. Prints mean, median and range over the window."""
+    import numpy as np
+
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(SEED + 7)
+    reqs = [Request(rid=200 + i,
+                    prompt=rng.integers(1, cfg.vocab_size, 64).tolist(),
+                    max_new_tokens=129, arrival_s=0.0) for i in range(8)]
+    for r in reqs:
+        eng.submit(r)
+    log = []
+    while eng.sched.has_work():
+        log.append(timed_step(eng))
+        check(len(log) < 2000, f"{what}: decode window made no progress")
+    eng.run()
+    done = [r for r in eng.finished if r.rid >= 200]
+    check(len(done) == 8 and all(len(r.output) == 129 for r in done),
+          f"{what}: decode window finished {len(done)}/8 requests")
+    ms = sorted(t / N for t, dec, _ in log if dec)
+    check(len(ms) > 0, f"{what}: decode window had no decode-only step")
+    out = dict(n=len(ms), mean=sum(ms) / len(ms), median=ms[len(ms) // 2],
+               lo=ms[0], hi=ms[-1])
+    print(f"{what}: decode window, {out['n']} decode-only iterations of "
+          f"{N} token(s) per slot at B=8: per-token step mean "
+          f"{out['mean']:.3f} ms, median {out['median']:.3f}, range "
+          f"{out['lo']:.3f}-{out['hi']:.3f}", flush=True)
+    return out
+
+
+def static_policy():
+    """A policy that never switches on its own: the serve and switch
+    phases switch by request, the policy phase by its own policy."""
+    from repro_torch.core.policy import PolicyConfig
+    return PolicyConfig(t_high=10**9, t_low=-1, cooldown_s=10**9)
 
 
 def serve_model():
@@ -674,7 +739,9 @@ def phase_serve(results: dict) -> None:
         t0 = time.time()
         eng = MoebiusEngine(cfg, (1, 2), cc, params_global=params,
                             ecfg=EngineConfig(start_layout=layout,
-                                              prefill_chunk=128, seed=SEED))
+                                              prefill_chunk=128, seed=SEED,
+                                              graphs=False,
+                                              policy=static_policy()))
         torch.cuda.synchronize()
         t_pack = time.time() - t0
         reqs = [Request(rid=i, prompt=p, max_new_tokens=32, arrival_s=0.0)
@@ -707,6 +774,9 @@ def phase_serve(results: dict) -> None:
         check(n_gmm == 2 * L * disp, f"{layout}: {n_gmm} gmm launches for "
                                      f"{disp} dispatches x {L} layers")
         toks = sum(len(r.output) for r in eng.finished)
+        results.setdefault("serve_outputs", {})[layout] = {
+            r.rid: list(r.output) for r in eng.finished}
+        results.setdefault("serve_tok_s", {})[layout] = toks / wall
         print(f"serve {layout}: G=2 pack {t_pack:.2f} s, {steps} steps, "
               f"{disp} dispatches, {toks} tokens in {wall:.3f} s -> "
               f"{toks / wall:.2f} tok/s, mean step {wall / steps * 1e3:.2f} ms,"
@@ -714,7 +784,6 @@ def phase_serve(results: dict) -> None:
               f"launches attention={n_att} gmm={n_gmm}, mean decode-only "
               f"step {results['static_decode_ms'][layout]:.2f} ms",
               flush=True)
-        results.setdefault("launches", {})
         for k, n in (("paged_attention", n_att), ("grouped_matmul", n_gmm)):
             results["launches"][k] = results["launches"].get(k, 0) + n
         firsts[layout] = {r.rid: r.output[0] for r in eng.finished}
@@ -727,12 +796,16 @@ def phase_serve(results: dict) -> None:
                       lg.abs().max()),
                   f"{layout}: request {r.rid} first token disagrees with "
                   f"its own logits")
+        results.setdefault("eager_window", {})[layout] = decode_window(
+            eng, cfg, 1, f"serve {layout} eager")
         del eng
         gc.collect()
-        profile_serve(
+        results.setdefault("eager_profile", {})[layout] = profile_serve(
             MoebiusEngine(cfg, (1, 2), cc, params_global=params,
                           ecfg=EngineConfig(start_layout=layout,
-                                            prefill_chunk=128, seed=SEED)),
+                                            prefill_chunk=128, seed=SEED,
+                                            graphs=False,
+                                            policy=static_policy())),
             [Request(rid=i, prompt=p, max_new_tokens=32, arrival_s=0.0)
              for i, p in enumerate(specs)], layout)
         gc.collect()
@@ -784,7 +857,8 @@ def phase_parity_switch() -> None:
                             ecfg=EngineConfig(start_layout=start,
                                               ladder=(4, 8),
                                               prefill_chunk=32,
-                                              chunk_layers=chunk))
+                                              chunk_layers=chunk,
+                                              policy=static_policy()))
         for i in range(6):
             eng.submit(Request(rid=i, prompt=rng.integers(
                 1, cfg.vocab_size, int(rng.integers(20, 61))).tolist(),
@@ -853,16 +927,41 @@ def kv_written(eng) -> dict:
     return out
 
 
-def check_kv_moved(before: dict, after: dict, what: str) -> int:
+def check_kv_moved(before: dict, after: dict, what: str,
+                   require: bool = True) -> int:
     """Every request live on both sides reads the same K/V at the
-    positions written before the switch (page 0 is never a request's)."""
+    positions written before the switch (page 0 is never a request's).
+    Returns how many were compared (require: at least one)."""
     common = sorted(set(before) & set(after))
-    check(len(common) > 0, f"{what}: no live request to compare")
+    check(len(common) > 0 or not require,
+          f"{what}: no live request to compare")
     for rid in common:
         n = before[rid].shape[2]
         check(torch_equal(after[rid][:, :, :n], before[rid]),
               f"{what}: request {rid} K/V differ after the switch")
     return len(common)
+
+
+def switch_memory(fn) -> tuple:
+    """Run one switch, `fn()`, and measure what it adds to the device
+    memory: (fn's result, dict(transient bytes above what was allocated
+    before it, cudaMalloc calls and allocator retries during it, the peak
+    before it)). The peak statistic restarts here; `before_peak` keeps the
+    earlier one."""
+    import torch
+    torch.cuda.synchronize()
+    before_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0, st0 = torch.cuda.memory_allocated(), torch.cuda.memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    st1 = torch.cuda.memory_stats()
+    return out, dict(
+        transient=torch.cuda.max_memory_allocated() - alloc0,
+        mallocs=st1.get("num_device_alloc", 0) - st0.get("num_device_alloc",
+                                                         0),
+        retries=st1.get("num_alloc_retries", 0)
+        - st0.get("num_alloc_retries", 0), before_peak=before_peak)
 
 
 def torch_equal(a, b) -> bool:
@@ -886,7 +985,9 @@ def phase_switch(results: dict) -> None:
     eng = MoebiusEngine(cfg, (1, 2), cc, params_global=params,
                         ecfg=EngineConfig(start_layout="tp",
                                           layouts=("tp", "ep"),
-                                          prefill_chunk=128, seed=SEED))
+                                          prefill_chunk=128, seed=SEED,
+                                          graphs=False,
+                                          policy=static_policy()))
     del params                  # the engine holds the one copy it serves
     gc.collect()
     torch.cuda.empty_cache()
@@ -894,7 +995,7 @@ def phase_switch(results: dict) -> None:
     store_bytes = sum(v.numel() * v.element_size()
                       for v in eng._experts.values())
     t0 = time.time()
-    host = {k: v.cpu() for k, v in eng._experts.items()}
+    host = {k: v.to("cpu", copy=True) for k, v in eng._experts.items()}
     print("switch: the G=2 ranks are stacked on this one card, so the "
           "exchange between them moves through HBM, not NVLink: these are "
           "not multi-GPU switch times", flush=True)
@@ -907,7 +1008,11 @@ def phase_switch(results: dict) -> None:
     kv_bytes_page = (2 * L * cc.page_size * cfg.num_kv_heads * cfg.dh
                      * cfg.param_dtype.itemsize)
 
-    def report(rec, n_kv, moved):
+    def report(rec, n_kv, moved, mem):
+        print(f"switch {rec.direction}: {mem['transient'] / 2**30:.2f} GiB "
+              f"allocated above the {store_bytes / 2**30:.2f} GiB store "
+              f"and the rest while it ran, {mem['mallocs']} cudaMalloc "
+              f"calls, {mem['retries']} allocator retries", flush=True)
         weights_s = rec.weights_s
         nbytes = 2 * store_bytes + 2 * (rec.kv_pages + rec.delta_pages) \
             * kv_bytes_page
@@ -937,8 +1042,12 @@ def phase_switch(results: dict) -> None:
         log.append(timed_step(eng) + ("tp before",))
     # 1. monolithic tp -> ep, prefills still in flight
     snap, c0 = kv_written(eng), counts()
-    eng.execute_switch("ep")
+    ptrs = [v.data_ptr() for v in eng._experts.values()]
+    _, mem1 = switch_memory(lambda: eng.execute_switch("ep"))
+    peak = mem1["before_peak"]
     rec1, g1 = eng.switch_records[-1], grew(c0)
+    check(ptrs == [v.data_ptr() for v in eng._experts.values()],
+          "monolithic tp->ep: the store moved")
     check(g1 == {"gather_pages_rows": 1, "scatter_pages_rows": 1,
                  "pack_peer_chunks": 0, "pack_width_chunks": 0,
                  "interleave_shards": L, "interleave_width_shards": L},
@@ -955,13 +1064,14 @@ def phase_switch(results: dict) -> None:
             unpack_experts(w2, lay_tp, 2, E), lay_ep, 2)),
               f"tp->ep: w2 layer {li} differs from the ep packing")
         del w13, w2
-    report(rec1, n1, g1)
+    report(rec1, n1, g1, mem1)
     while len(log) < SWITCH2:
         log.append(timed_step(eng) + ("ep between",))
     # 2. chunked ep -> tp, one layer per chunk, a decode step after each
     snap, c0 = kv_written(eng), counts()
     eng.ecfg.chunk_layers = 1
-    eng.execute_switch("tp")
+    _, mem2 = switch_memory(lambda: eng.execute_switch("tp"))
+    peak = max(peak, mem2["before_peak"])
     rec2, g2 = eng.switch_records[-1], grew(c0)
     W = 8                                   # the delta pass's plan width
     delta_calls = g2["gather_pages_rows"] - L
@@ -981,12 +1091,12 @@ def phase_switch(results: dict) -> None:
             check(torch_equal(eng._experts[k][li], host[k][li].cuda()),
                   f"round trip: {k} layer {li} differs from the store "
                   f"before the first switch")
-    report(rec2, n2, g2)
+    report(rec2, n2, g2, mem2)
     while eng.sched.has_work():
         log.append(timed_step(eng) + ("tp after",))
         check(len(log) < 2000, "switch: engine made no progress")
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peak, torch.cuda.max_memory_allocated())
     total = torch.cuda.get_device_properties(0).total_memory
     check(peak < total, f"peak {peak} above the card's {total}")
     check(len(eng.finished) == 8, f"switch: {len(eng.finished)}/8 done")
@@ -1012,6 +1122,329 @@ def phase_switch(results: dict) -> None:
     print(f"switch: 8/8 requests finished with 32 tokens; store round trip "
           f"byte-equal; peak device memory {peak / 2**30:.2f} GiB of "
           f"{total / 2**30:.2f} GiB; launches {launched}", flush=True)
+    del eng, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: resident runtimes (CUDA graphs), the fused decode loop, the policy
+# ---------------------------------------------------------------------------
+
+def graph_report(eng, what: str) -> dict:
+    """Check that every captured graph holds the hand-written attention and
+    GEMM kernels, and print the runtime's graphs, pool and builds."""
+    import torch
+    rt = eng.ex.rt
+    graphs = rt.executables
+    check(len(graphs) > 0, f"{what}: no graph was captured")
+    for key, e in graphs.items():
+        for op in ("paged_attention", "grouped_matmul"):
+            check(e.launches.get(op, 0) > 0,
+                  f"{what}: graph {key} holds no {op} launch")
+    pool = rt.pool_bytes()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"{what}: {len(graphs)} graphs captured in "
+          f"{rt.total_build_time():.2f} s (keys (layout, kind, B, Sq|N, "
+          f"bank)); captured launches per graph: "
+          + ", ".join(f"{k[0]}/{k[1]}/B{k[2]}/{k[3]}/bank{k[4]}: "
+                      f"attention {e.launches.get('paged_attention', 0)} "
+                      f"gmm {e.launches.get('grouped_matmul', 0)}"
+                      for k, e in sorted(graphs.items(), key=str)[:4])
+          + f", ...; graph pool {pool / 2**20:.1f} MiB = "
+            f"{pool / total:.2%} of {total / 2**30:.2f} GiB", flush=True)
+    return dict(graphs=len(graphs), pool_bytes=pool)
+
+
+def ep_decode_buffer_bytes(cfg, B: int, G: int = 2) -> int:
+    """Bytes of one layer's EP decode expert buffer at rung B: G ranks x
+    E/G local experts x G*Cd rows x d_model, at repro's static capacity."""
+    import math
+    T = B // G
+    k, E = cfg.top_k, cfg.num_experts
+    Cd = int(math.ceil(T * k / G * cfg.capacity_factor))
+    Cd = max(4, min(T * k, -(-Cd // 4) * 4))
+    return G * (E // G) * G * Cd * cfg.d_model * cfg.compute_dtype.itemsize
+
+
+def phase_graphs(results: dict) -> None:
+    """The serve phase's 8 requests again, per layout, with every decode
+    step replayed from a CUDA graph captured at warmup: single steps
+    (decode_steps=1), then the fused loop (decode_steps=8). Greedy tokens
+    byte-identical to the eager serve's; tok/s, decode-only step and the
+    profiled device idle beside the eager run's."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.request import Request
+
+    cfg, cc = serve_model()
+    params = init_params(cfg, SEED, device="cuda")
+    specs = serve_prompts(cfg)
+    for B in (8, 32):
+        print(f"graphs: EP decode expert buffer at B={B} (static capacity, "
+              f"factor {cfg.capacity_factor:g}): "
+              f"{ep_decode_buffer_bytes(cfg, B) / 1e9:.3f} GB per layer",
+              flush=True)
+    for layout in ("tp", "ep"):
+        for N in (1, 8):
+            eng = MoebiusEngine(cfg, (1, 2), cc, params_global=params,
+                                ecfg=EngineConfig(start_layout=layout,
+                                                  prefill_chunk=128,
+                                                  seed=SEED, decode_steps=N,
+                                                  policy=static_policy()))
+            torch.cuda.synchronize()
+            t0 = time.time()
+            eng.warmup()
+            t_warm = time.time() - t0
+            rep = graph_report(eng, f"graphs {layout} N={N}")
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=32,
+                            arrival_s=0.0) for i, p in enumerate(specs)]
+            for r in reqs:
+                eng.submit(r)
+            dispatch.reset_counts()
+            rt = eng.ex.rt
+            replays0 = sum(rt.replays().values())
+            launch0 = rt.replayed_launches()
+            log = []
+            t0 = time.time()
+            while eng.sched.has_work():
+                log.append(timed_step(eng))
+                check(len(log) < 2000, f"graphs {layout}: no progress")
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            out = {r.rid: list(r.output) for r in eng.finished}
+            check(out == results["serve_outputs"][layout],
+                  f"graphs {layout} N={N}: greedy tokens differ from the "
+                  f"eager serve's")
+            check(rt.late_builds == 0, f"graphs {layout} N={N}: "
+                                       f"{rt.late_builds} captures after "
+                                       f"warmup")
+            toks = sum(len(o) for o in out.values())
+            # a fused iteration decodes N tokens per slot: per-token step
+            dec = mean_ms(log, decode_only=True) / N
+            replays = sum(rt.replays().values()) - replays0
+            launched = rt.replayed_launches() - launch0
+            eager = {k: dispatch.calls(k)
+                     for k in ("paged_attention", "grouped_matmul")}
+            print(f"graphs {layout} N={N}: warmup {t_warm:.2f} s; "
+                  f"{len(log)} steps, {toks} tokens in {wall:.3f} s -> "
+                  f"{toks / wall:.2f} tok/s (eager "
+                  f"{results['serve_tok_s'][layout]:.2f}); decode-only step "
+                  f"{dec:.2f} ms per token (eager "
+                  f"{results['static_decode_ms'][layout]:.2f}); "
+                  f"{replays} graph replays launching attention "
+                  f"{launched['paged_attention']} / gmm "
+                  f"{launched['grouped_matmul']}, eager (prefill) launches "
+                  f"{eager}; greedy tokens = eager serve's", flush=True)
+            res = results.setdefault("graphs", {})
+            res[(layout, N)] = dict(tok_s=toks / wall, decode_ms=dec, **rep)
+            for k in ("paged_attention", "grouped_matmul"):
+                results["launches"][k] = (results["launches"].get(k, 0)
+                                          + eager[k])
+            win = decode_window(eng, cfg, N, f"graphs {layout} N={N}")
+            res[(layout, N)]["window"] = win
+            if N == 8:
+                single = res[(layout, 1)]["window"]
+                eager_win = results["eager_window"][layout]
+                print(f"graphs {layout}: decode window per-token median "
+                      f"eager {eager_win['median']:.3f} ms ({eager_win['n']}"
+                      f" steps), graphed N=1 {single['median']:.3f} "
+                      f"({single['n']}), N=8 {win['median']:.3f} "
+                      f"({win['n']} iterations): fused "
+                      f"{1 - win['median'] / single['median']:.1%} below "
+                      f"single", flush=True)
+                prof = profile_serve(eng, [
+                    Request(rid=100 + i, prompt=p, max_new_tokens=32,
+                            arrival_s=0.0) for i, p in enumerate(specs)],
+                    f"{layout} graphed N=8")
+                ea = results["eager_profile"][layout]
+                print(f"graphs {layout}: device idle {prof['idle_ms']:.1f} "
+                      f"of {prof['timeline_ms']:.1f} ms = "
+                      f"{prof['idle_ms'] / prof['timeline_ms']:.1%} "
+                      f"(eager {ea['idle_ms']:.1f} of "
+                      f"{ea['timeline_ms']:.1f} ms = "
+                      f"{ea['idle_ms'] / ea['timeline_ms']:.1%})",
+                      flush=True)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def policy_trace():
+    """A bursty trace (serving/workloads.py): 80 req/s for the first 0.3 s
+    of virtual time, 6 req/s to 1.5 s; prompts 64-256, 32-64 new tokens.
+    The policy band is set from it: T_high four fifths of the burst's
+    arrivals, T_low three quarters of T_high, a window of 2 iterations
+    (the fused loop drains the burst in a few iterations)."""
+    from repro_torch.core.policy import PolicyConfig
+    from repro_torch.serving.workloads import BurstySpec, bursty_trace
+    spec = BurstySpec(duration_s=1.5, burst_windows=((0.0, 0.3),),
+                      burst_rates=(80.0,), quiet_rate=6.0,
+                      prompt_range=(64, 256), output_range=(16, 160))
+    trace = bursty_trace(spec, seed=SEED)
+    n_burst = sum(1 for r in trace if r.arrival_s < 0.3)
+    t_high = max(2, n_burst * 4 // 5)
+    return trace, PolicyConfig(t_high=t_high, t_low=max(1, t_high * 3 // 4),
+                               window=2, cooldown_s=0.1)
+
+
+POLICY_DT = 0.02            # virtual seconds charged per dispatch
+
+
+def phase_policy(results: dict) -> None:
+    """The engine serves a bursty trace on a virtual clock and switches on
+    its own: the policy observes the queues once per iteration. Decode runs
+    from graphs captured at warmup for both layouts and both banks (the
+    chunked switch's second store and KV buffer), fused 8 steps a
+    dispatch. The first switch runs monolithic (in place), later ones in
+    chunks of 2 layers. Through each switch the expert store and every live
+    request's K/V must come through byte-exact, and no graph may be
+    captured after warmup."""
+    import torch
+
+    from repro_torch.core.cost_model import H100
+    from repro_torch.core.policy import calibrate_threshold
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.moe import (make_expert_layout, pack_experts,
+                                        pack_w13, unpack_experts, unpack_w13)
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.frontend import VirtualClock
+
+    cfg, cc = serve_model()
+    L, E = cfg.num_layers, cfg.num_experts
+    trace, pcfg = policy_trace()
+    mean_ctx = int(sum(len(r.prompt) + r.max_new_tokens for r in trace)
+                   / len(trace))
+    print(f"policy: {len(trace)} requests, T_high={pcfg.t_high} "
+          f"T_low={pcfg.t_low} window={pcfg.window} (set from the trace); "
+          f"calibrate_threshold(hw=H100, G=2, "
+          f"kv_len={mean_ctx}) = "
+          f"{calibrate_threshold(cfg, 2, mean_ctx, hw=H100)}, (G=8) = "
+          f"{calibrate_threshold(cfg, 8, mean_ctx, hw=H100)}", flush=True)
+    params = init_params(cfg, SEED, device="cuda")
+    eng = MoebiusEngine(cfg, (1, 2), cc, params_global=params,
+                        ecfg=EngineConfig(
+                            start_layout="tp", prefill_chunk=128, seed=SEED,
+                            decode_steps=8, chunk_layers=1,
+                            clock=VirtualClock(), dispatch_dt=POLICY_DT,
+                            policy=pcfg))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng.warmup()
+    t_warm = time.time() - t0
+    rep = graph_report(eng, "policy")
+    total = torch.cuda.get_device_properties(0).total_memory
+    second = eng.ex.second_bank_bytes()
+    print(f"policy: warmup {t_warm:.2f} s; second bank (store and KV "
+          f"buffer of the chunked switch) {second / 2**30:.2f} GiB = "
+          f"{second / total:.2%} of {total / 2**30:.2f} GiB; graph pool "
+          f"{rep['pool_bytes'] / 2**20:.1f} MiB = "
+          f"{rep['pool_bytes'] / total:.2%}", flush=True)
+    eng.ecfg.chunk_layers = 0            # the first switch: monolithic
+    host = {k: v.to("cpu", copy=True)               # tp order
+            for k, v in eng.ex._experts.items()}
+    lay_tp, lay_ep = (make_expert_layout(E, 2, k) for k in ("tp", "ep"))
+    plain = eng.execute_switch
+    checked, peaks = [], []
+
+    def expected(k: str, li: int):
+        """Layer li of the store in the active layout, from the host copy
+        taken in tp before the first switch."""
+        w = host[k][li].cuda()
+        if str(eng.active) == "tp":
+            return w
+        if k == "w13":
+            return pack_w13(unpack_w13(w, lay_tp, E), lay_ep)
+        return pack_experts(unpack_experts(w, lay_tp, 2, E), lay_ep, 2)
+
+    def switch(target):
+        """The engine's switch, with the store and K/V checks around it."""
+        eng.ex.drain_decode()
+        snap, layout = kv_written(eng), str(eng.active)
+        ptrs = [v.data_ptr() for v in eng.ex._experts.values()]
+        mono = eng.ecfg.chunk_layers == 0
+        ok, mem = switch_memory(lambda: plain(target))
+        peaks.append(mem["before_peak"])
+        check(ok, f"policy: the {layout}->{target} switch did not commit")
+        rec = eng.switch_records[-1]
+        # a chunked switch decodes between its chunks: a request may
+        # finish inside it, and is compared only if it lives on
+        n = check_kv_moved(snap, kv_written(eng), rec.direction,
+                           require=False)
+        moved = ptrs != [v.data_ptr() for v in eng.ex._experts.values()]
+        mode = "monolithic" if mono else "chunked"
+        check(moved != mono, f"policy: the {mode} switch "
+                             f"{'moved' if moved else 'kept'} the store")
+        for li in range(L):
+            for k in ("w13", "w2"):
+                check(torch_equal(eng.ex._experts[k][li], expected(k, li)),
+                      f"policy {rec.direction}: {k} layer {li} differs")
+        checked.append((rec, n, mono, mem))
+        eng.ecfg.chunk_layers = 2        # every later switch: 2 chunks
+        return ok
+
+    eng.execute_switch = switch
+    for r in trace:
+        eng.submit(r)
+    dispatch.reset_counts()
+    t0 = time.time()
+    steps = 0
+    while eng.sched.has_work():
+        eng.step()
+        steps += 1
+        check(steps < 5000, "policy: engine made no progress")
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    rt = eng.ex.rt
+    dirs = [rec.direction for rec, n, *_ in checked if n > 0]
+    check("tp_to_ep" in dirs and "ep_to_tp" in dirs,
+          f"policy: switches with live K/V {dirs}: not both directions")
+    check({mono for _, _, mono, _ in checked} == {True, False},
+          "policy: no monolithic and chunked pair")
+    check(rt.late_builds == 0, f"policy: {rt.late_builds} captures after "
+                               f"warmup")
+    check(len(eng.finished) == len(trace), f"policy: "
+          f"{len(eng.finished)}/{len(trace)} finished")
+    for r in eng.finished:
+        check(len(r.output) == r.max_new_tokens and all(
+            0 <= t < cfg.vocab_size for t in r.output),
+            f"policy: request {r.rid} output length {len(r.output)}")
+    for rec, n, mono, mem in checked:
+        print(f"policy switch {rec.direction} at virtual t={rec.t:.3f} s: "
+              f"{'monolithic' if mono else f'{rec.chunks} chunks'}, "
+              f"{mem['transient'] / 2**30:.2f} GiB allocated above the "
+              f"buffers while it ran, {mem['mallocs']} cudaMalloc calls"
+              f", pause_s={rec.pause_s:.4f} total_s={rec.total_s:.4f} "
+              f"weights_s={rec.weights_s:.4f} kv_s={rec.kv_s:.4f} "
+              f"kv_pages={rec.kv_pages} delta_pages={rec.delta_pages} "
+              f"live_requests={rec.live_requests}; K/V of {n} requests and "
+              f"the store byte-equal", flush=True)
+    launched = rt.replayed_launches()
+    eager = {k: dispatch.calls(k) for k in ("paged_attention",
+                                            "grouped_matmul")
+             + SWITCH_KERNELS}
+    peak = max(peaks + [torch.cuda.max_memory_allocated()])
+    print(f"policy: {len(trace)}/{len(trace)} requests finished with their "
+          f"lengths in {steps} iterations, {wall:.2f} s wall; "
+          f"{sum(rt.replays().values())} graph replays (attention "
+          f"{launched['paged_attention']}, gmm {launched['grouped_matmul']} "
+          f"launches), eager launches {eager}; 0 captures after warmup; "
+          f"aborted switches {len(eng.metrics.switch_abort_events)}; peak "
+          f"device memory {peak / 2**30:.2f} GiB", flush=True)
+    for k, n in eager.items():
+        results["launches"][k] = results["launches"].get(k, 0) + n
     del eng, host
     gc.collect()
     torch.cuda.empty_cache()
@@ -1261,6 +1694,16 @@ def kv_pack_hbm(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them: every
+    number this script prints stands beside them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -1274,7 +1717,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
+          f"cuda {torch.version.cuda}; {card_line()}", flush=True)
 
     from repro_torch.kernels import build
     t0 = time.time()
@@ -1287,13 +1730,21 @@ def main() -> int:
                                         "C7514")):
                 print(f"  {name}: {line.strip()}")
 
-    results: dict = {}
-    phase_kernels(results)
-    phase_parity()
-    phase_parity_switch()
-    phase_serve(results)
-    phase_switch(results)
-    phase_switch_kernels(results)
+    phases = [("kernels", lambda: phase_kernels(results)),
+              ("parity", phase_parity),
+              ("parity_switch", phase_parity_switch),
+              ("serve", lambda: phase_serve(results)),
+              ("switch", lambda: phase_switch(results)),
+              ("switch_kernels", lambda: phase_switch_kernels(results)),
+              ("graphs", lambda: phase_graphs(results)),
+              ("policy", lambda: phase_policy(results))]
+    results: dict = {"launches": {}}
+    t_run = time.time()
+    for name, fn in phases:
+        t0 = time.time()
+        fn()
+        print(f"phase {name}: {time.time() - t0:.1f} s (run so far "
+              f"{time.time() - t_run:.1f} s)", flush=True)
 
     # #3 and #6 serve only tests in repro: no main path launches them
     off_path = ("gather_pages", "scatter_pages")
@@ -1309,11 +1760,7 @@ def main() -> int:
         rows.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

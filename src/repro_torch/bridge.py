@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.dispatch import require_device
+
 
 def _to_torch(a, device) -> torch.Tensor:
     a = np.asarray(a)
@@ -27,12 +29,14 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, device="cuda"):
     """Nested dict of array-likes (repro's param tree through numpy) ->
-    the same tree of torch tensors on `device`."""
+    the same tree of torch tensors on `device` (the card unless the caller
+    asks for the CPU, like every entry point of the port)."""
+    dev = require_device(device)
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
-    return _to_torch(tree, device)
+        return {k: params_from_jax(v, dev) for k, v in tree.items()}
+    return _to_torch(tree, dev)
 
 
 def params_to_numpy(tree):

@@ -70,6 +70,16 @@ class LayoutSpec(str):
             return tuple(ladder)
         return tuple(sorted({max(q, -(-b // q) * q) for b in ladder}))
 
+    # -- KV ownership -------------------------------------------------------
+    def kv_capacity_tokens(self, cfg: ModelConfig, G: int,
+                           ep_capacity_tokens: int) -> int:
+        """Group token capacity under this layout given the EP-view capacity
+        (same byte budget; the pooled view replicates each KV head kv_rep
+        times — the paper's capacity penalty)."""
+        if self.kv_view == "ep":
+            return ep_capacity_tokens
+        return ep_capacity_tokens // group_info(cfg, G).kv_rep
+
     # -- expert sharding ----------------------------------------------------
     def expert_group(self, G: int, chips: int | None = None) -> int:
         return (chips or G) if self.expert_full_mesh else G
@@ -113,6 +123,13 @@ def get_layout(name) -> LayoutSpec:
             return register_layout(LayoutSpec(str(name), **fields))
     raise KeyError(f"unknown layout {name!r}; registered: "
                    f"{tuple(_REGISTRY)}") from None
+
+
+def world_of(layout, default_G: int) -> int:
+    """Device count a layout runs on: its own `world`, else the launch
+    group size."""
+    w = getattr(get_layout(layout), "world", None)
+    return int(w) if w else int(default_G)
 
 
 TP = register_layout(LayoutSpec(
@@ -164,6 +181,10 @@ class GroupInfo:
 def group_info(cfg: ModelConfig, G: int) -> GroupInfo:
     return GroupInfo(G=G, cfg_heads=cfg.num_heads,
                      cfg_kv_heads=cfg.num_kv_heads)
+
+
+def expert_layout(cfg: ModelConfig, G: int, layout: str) -> ExpertLayout:
+    return make_expert_layout(cfg.num_experts, G, layout)
 
 
 def padded_vocab(V: int, multiple: int = 256) -> int:

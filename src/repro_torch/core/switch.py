@@ -15,13 +15,16 @@ buffers, layer range by layer range:
 
   1. `reshard_experts_pair`   — the generic path: unpack(src) then
      pack(dst), in plain torch (repro leaves it to XLA, not to Pallas).
+     Both reshard paths move one layer at a time through a one-layer
+     temporary, so the destination may be the source's own bytes viewed
+     in the target layout (the monolithic switch reshards in place).
   2. `reshard_experts_direct` — the paper's two-stage plan (pure-EP
      groups): EP->TP = local permute (kernel) then exchange; TP->EP =
      exchange then local interleave (kernel). One launch per weight tensor
      per call: the layer range and the stacked ranks fold into the expert
      dim.
-  3. `make_migrate_kv[_chunk]` + `plan_*` — paged-KV migration: host
-     page-pair descriptors (paper Fig. 8) and a gather (kernel) ->
+  3. `make_migrate_kv[_inplace|_chunk]` + `plan_*` — paged-KV migration:
+     host page-pair descriptors (paper Fig. 8) and a gather (kernel) ->
      exchange -> scatter (kernel) over the unified buffer's two views.
 
 Not in this slice: `affected_by_pool_loss`, `plan_rank_shrink`,
@@ -468,6 +471,25 @@ def make_migrate_kv(cfg: ModelConfig, cc: CacheConfig, mesh, direction: str,
     def body(kv_flat, src_pages, dst_pages, valid):
         return inner(kv_flat, torch.zeros_like(kv_flat), src_pages,
                      dst_pages, valid)
+
+    return body
+
+
+def make_migrate_kv_inplace(cfg: ModelConfig, cc: CacheConfig, mesh,
+                            direction: str, pmax: int):
+    """The monolithic KV migration within one buffer (the paper's fixed
+    addresses): the shared body over all layers with the source as its own
+    destination. Every planned page is gathered before the one scatter
+    writes the destination view, so no page is overwritten before it is
+    read; kv_flat keeps its address, and CUDA graphs captured against it
+    stay valid. Pages outside the plan keep stale bytes that no request
+    reads (C5)."""
+    G = mesh[1]
+    inner = _kv_migrate_body(cfg, cc, G, direction, pmax, 0,
+                             cc.view_shape(cfg, G, EP)[0])
+
+    def body(kv_flat, src_pages, dst_pages, valid):
+        return inner(kv_flat, kv_flat, src_pages, dst_pages, valid)
 
     return body
 

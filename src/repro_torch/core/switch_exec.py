@@ -9,10 +9,14 @@ direct path for the pure-EP tp<->ep pair).
 
 Two execution modes over the movers in core/switch.py (DESIGN.md §4):
 
-  * **monolithic** — plan, reshard all expert weights (layer by layer into
-    a preallocated destination store), migrate all planned KV pages,
-    rewrite request metadata. Decode is paused for the whole operation
-    (pause == total).
+  * **monolithic** — plan, reshard all expert weights layer by layer,
+    migrate all planned KV pages, rewrite request metadata. Decode is
+    paused for the whole operation (pause == total). Given `out` (the
+    store's own bytes viewed in the target layout) both movers work in
+    place, the paper's "single copy of expert weights and KV cache at
+    fixed addresses": the store and the KV buffer keep their `data_ptr`,
+    so CUDA graphs captured against them stay valid, and the switch's
+    peak memory holds one expert store, not two.
   * **chunked / overlapped** — the expert store and the KV pool are
     migrated layer chunk by layer chunk into staged destination buffers
     while the source buffers stay live, so the engine interleaves decode
@@ -20,7 +24,10 @@ Two execution modes over the movers in core/switch.py (DESIGN.md §4):
     (`plan_switch` is pure). At commit: re-copy the dirty pages (decode
     writes after the plan snapshot, pages allocated in the window),
     release destination pages of requests that finished in the window,
-    apply the planned metadata, hand over the staged buffers.
+    apply the planned metadata, hand over the staged buffers. The engine
+    may hand `start` the destination buffers (a second store and KV
+    buffer it allocated once), so that a chunked switch, too, lands at
+    addresses its graphs know.
 
 Eager PyTorch compiles nothing, so repro's mover caches become plain
 function selection and `warmup_movers` has no counterpart: the first live
@@ -46,6 +53,7 @@ from repro_torch.core.switch import (apply_assignments,
                                      expert_pair_dst_shapes,
                                      kv_migration_direction, make_migrate_kv,
                                      make_migrate_kv_chunk,
+                                     make_migrate_kv_inplace,
                                      pair_expert_layouts, pairs_to_plan,
                                      plan_switch, reshard_experts_direct,
                                      reshard_experts_pair)
@@ -226,12 +234,29 @@ class SwitchExecutor:
     # ------------------------------------------------------------------
     # monolithic mode (the baseline; pause == total)
     # ------------------------------------------------------------------
+    def _reshard_layer_inplace(self, src, dst, experts: dict, out: dict,
+                               li: int) -> None:
+        """Layer li of `experts` into `out`, the same bytes in the target
+        view. The direct path reads the whole layer into its pack/exchange
+        temporary before it writes; the generic path gets a one-layer
+        copy of the source first."""
+        if self._use_direct(src, dst):
+            self._reshard(src, dst, experts, out, li, li + 1)
+            return
+        one = {k: experts[k][li:li + 1].clone() for k in experts}
+        self._reshard(src, dst, one, {k: out[k][li:li + 1] for k in out},
+                      0, 1)
+
     def monolithic(self, src, dst, live, experts, kv_flat, cur_alloc=None,
-                   caches=None):
+                   caches=None, *, out: dict | None = None):
         """Full stop-the-world src->dst switch. Returns (experts', kv_flat',
         alloc', caches', stats); request metadata is rewritten in place.
-        The source expert store is no longer referenced here once it
-        returns: the caller drops its own reference to free it."""
+
+        out=None: into a fresh store and KV buffer; the source store is no
+        longer referenced here once it returns (the caller drops its own
+        reference to free it). `out` given (views of the same storage as
+        `experts`, shaped for `dst`): in place — the store comes back as
+        `out` and the KV buffer as `kv_flat`, at their addresses."""
         src, dst = get_layout(src), get_layout(dst)
         t0 = time.perf_counter()
         (sp, dp, vm), pmax, _, new_alloc, kv_dir, cache_moves = self._plan(
@@ -240,18 +265,24 @@ class SwitchExecutor:
 
         t1 = time.perf_counter()
         if self.cfg.is_moe:
-            # layer by layer into a preallocated store: beside the two
-            # stores only one layer's pack/exchange scratch is alive
-            out = self._empty_store(src, dst, experts)
-            for li in range(self.cfg.num_layers):
-                self._reshard(src, dst, experts, out, li, li + 1)
-            experts = out
+            # layer by layer: beside the store(s) only one layer's
+            # pack/exchange scratch is alive
+            if out is None:
+                dst_store = self._empty_store(src, dst, experts)
+                for li in range(self.cfg.num_layers):
+                    self._reshard(src, dst, experts, dst_store, li, li + 1)
+            else:
+                dst_store = out
+                for li in range(self.cfg.num_layers):
+                    self._reshard_layer_inplace(src, dst, experts, out, li)
+            experts = dst_store
             self._sync()
         t_w = time.perf_counter() - t1
 
         t2 = time.perf_counter()
         if self.Lk > 0 and kv_dir is not None:
-            mfn = make_migrate_kv(self.cfg, self.cc, self.mesh, kv_dir, pmax)
+            mk = make_migrate_kv if out is None else make_migrate_kv_inplace
+            mfn = mk(self.cfg, self.cc, self.mesh, kv_dir, pmax)
             kv_flat = mfn(kv_flat, *self._to_device((sp, dp, vm)))
             self._sync()
         t_kv = time.perf_counter() - t2
@@ -282,8 +313,10 @@ class SwitchExecutor:
         return out
 
     def start(self, src, dst, live, experts, kv_flat,
-              chunk_layers: int, cur_alloc=None, caches=None) -> SwitchSession:
-        """Plan the src->dst switch and stage the destination buffers.
+              chunk_layers: int, cur_alloc=None, caches=None, *,
+              experts_dst: dict, kv_dst) -> SwitchSession:
+        """Plan the src->dst switch into the preallocated destination
+        buffers `experts_dst` (shaped for `dst`) and `kv_dst` (zeroed here).
         Source buffers and request metadata stay live for overlap decode."""
         if self.session is not None:
             raise RuntimeError("switch already in progress")
@@ -292,12 +325,12 @@ class SwitchExecutor:
         plan_arrays, pmax, assignments, new_alloc, kv_dir, cache_moves = \
             self._plan(src, dst, live, mutate=False, cur_alloc=cur_alloc,
                        caches=caches)
-        experts_dst = None
-        if self.cfg.is_moe:
-            experts_dst = self._empty_store(src, dst, experts)
-        kv_dst = None
-        if self.Lk > 0 and kv_dir is not None:
-            kv_dst = torch.zeros_like(kv_flat)
+        if not self.cfg.is_moe:
+            experts_dst = None
+        if self.Lk == 0 or kv_dir is None:
+            kv_dst = None
+        else:
+            kv_dst.zero_()
         kv_pages = int(plan_arrays[2].sum())
         self.session = SwitchSession(
             src=src, dst=dst, direction=f"{src}_to_{dst}", kv_dir=kv_dir,

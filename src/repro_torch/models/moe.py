@@ -197,11 +197,17 @@ def _grouped_ffn_local(cfg: ModelConfig, w13, w2, xd, counts=None):
     return grouped_matmul(h, w2, counts)
 
 
-def _buffer_rows(load: torch.Tensor, cap: int) -> int:
-    """Rows per expert buffer: the largest load this step rounded up to a
-    multiple of 4, never above the capacity `cap`. repro sizes the buffer
-    at `cap` itself; every entry it keeps sits below the largest load, so
-    the rows that carry tokens are the same. One host read per call."""
+def _buffer_rows(load: torch.Tensor, cap: int, trim: bool) -> int:
+    """Rows per expert buffer. trim=False: the capacity `cap` itself, as
+    repro sizes it; the GEMM skips the rows past each expert's count, and
+    no value of this step is read on the host, so the call can run inside
+    a CUDA graph. trim=True: the largest load this step rounded up to a
+    multiple of 4, never above `cap` — a smaller buffer for wide (prefill
+    chunk) dispatches, at the price of one host read per call. Every entry
+    repro keeps sits below the largest load, so the rows that carry tokens
+    are the same either way."""
+    if not trim:
+        return cap
     c = int(load.max()) if load.numel() else 0
     return min(cap, max(4, -(-c // 4) * 4))
 
@@ -212,10 +218,12 @@ def _check_no_shared(cfg: ModelConfig) -> None:
 
 
 def moe_decode_tp(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-                  cap_factor: float | None = None) -> torch.Tensor:
+                  cap_factor: float | None = None,
+                  trim: bool = True) -> torch.Tensor:
     """TP decode, stacked: x (G, T, D) replicated over ranks; w13/w2 are the
     ranks' (E, W_loc) slices, (G, E, W13_loc, D) / (G, E, D, W2_loc).
-    Returns (G, T, D) *partial* sums — the caller psums them."""
+    Returns (G, T, D) *partial* sums — the caller psums them. `trim`: see
+    `_buffer_rows` (False: buffers of C rows, no host read)."""
     _check_no_shared(cfg)
     G, T, D = x.shape
     E = cfg.num_experts
@@ -224,7 +232,7 @@ def moe_decode_tp(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     khot = F.one_hot(eids, E).sum(-2)                          # (G,T,E)
     pos, keep, load = _dispatch_tensors(khot, torch.zeros_like(khot[:, 0]),
                                         C)
-    Cb = _buffer_rows(load, C)
+    Cb = _buffer_rows(load, C, trim)
     pos_k, keep_k = pos.gather(-1, eids), keep.gather(-1, eids)
     slot = torch.where(keep_k, eids * Cb + pos_k, E * Cb).reshape(G, -1)
     k = eids.shape[-1]
@@ -243,13 +251,15 @@ def moe_decode_tp(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
 def moe_decode_ep(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   lay: ExpertLayout, *,
-                  cap_factor: float | None = None) -> torch.Tensor:
+                  cap_factor: float | None = None,
+                  trim: bool = True) -> torch.Tensor:
     """EP decode, stacked: x (G, T_loc, D) is each rank's token slice.
 
     Dispatch entries (token, k, tp-replica) -> per-dest buffers -> all_to_all
     -> local grouped FFN -> inverse all_to_all -> gate-weighted combine.
     Pure EP when lay.tp_inner == 1; hybrid otherwise (partials sum in the
-    combine)."""
+    combine). `trim`: see `_buffer_rows` (False: the received entries sit
+    in buffers of G * Cd rows per local expert, no host read)."""
     _check_no_shared(cfg)
     G, T, D = x.shape
     E, k = cfg.num_experts, cfg.top_k
@@ -264,8 +274,9 @@ def moe_decode_ep(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # entries (T, k, tp) -> destination rank = (eid // E_loc) * tp + j
     dest = ((eids // E_loc)[..., None] * tp
             + torch.arange(tp, device=dev)).reshape(G, -1)     # (G, N)
-    e_entry = eids.repeat_interleave(tp, dim=-1).reshape(G, -1)
-    g_entry = gates.repeat_interleave(tp, dim=-1).reshape(G, -1)
+    # each (token, k) entry repeated for its tp replicas, consecutively
+    e_entry = eids[..., None].expand(G, T, k, tp).reshape(G, -1)
+    g_entry = gates[..., None].expand(G, T, k, tp).reshape(G, -1)
     dhot = F.one_hot(dest, G)                                  # (G,N,G)
     pos = (torch.cumsum(dhot, 1) - dhot).gather(-1, dest[..., None])[..., 0]
     keep = pos < Cd
@@ -283,7 +294,7 @@ def moe_decode_ep(cfg: ModelConfig, p: dict, x: torch.Tensor,
     ehot = F.one_hot(elc, E_loc) * valid[..., None]            # (G,N2,E_loc)
     pos2 = (torch.cumsum(ehot, 1) - ehot).gather(-1, elc[..., None])[..., 0]
     load2 = ehot.sum(1)                                        # (G, E_loc)
-    C2 = _buffer_rows(load2, G * Cd)
+    C2 = _buffer_rows(load2, G * Cd, trim)
     slot2 = torch.where(valid, elc * C2 + pos2, E_loc * C2)
     xd = _scatter_rows(E_loc * C2, slot2, recv_x)
     w13, w2 = p["w13"], p["w2"]

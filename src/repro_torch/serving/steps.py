@@ -3,7 +3,8 @@ ranks (port of repro/serving/steps.py).
 
 `build_mixed_step` is the ONE step function: rows carry per-row
 `(start_pos, n_tokens)`, so a batch may mix single-token decode rows with
-prefill chunks under a single call (DESIGN.md §10). Where `repro` runs the
+prefill chunks under a single call (DESIGN.md §10); `build_decode_loop`
+fuses N decode substeps of the same body. Where `repro` runs the
 body under `shard_map` with one local block per rank, the port runs it
 once with every per-rank tensor stacked on a leading G dim and the
 collectives of `distributed/ranks.py` between them.
@@ -18,6 +19,12 @@ Batch geometry per layout:
 KV pool: the unified flat buffer's layout view (serving/kvcache.py). The
 step writes the chunk's K/V into it IN PLACE (repro's step is functional
 and returns a new buffer; it donates the old one to the same effect).
+
+Capture safety: a decode step (Sq == 1) and the fused loop read no device
+value on the host — the MoE buffers take repro's static capacity, the
+embedding scale is a host float, and sampling draws its Gumbel noise from
+a counter-based hash of a seed the step reads from a device tensor — so
+the executor captures them as CUDA graphs (core/residency.py).
 """
 from __future__ import annotations
 
@@ -81,11 +88,18 @@ def _squeeze_pack(cfg, spec: LayoutSpec, pack: dict) -> dict:
 # Per-rank building blocks (stacked ranks)
 # ---------------------------------------------------------------------------
 
+def _embed_scale(cfg) -> float:
+    """sqrt(d_model) rounded to the compute dtype, as a host float: the
+    product is the same as with repro's 0-d array, and no host value has to
+    reach the card inside a captured step."""
+    return float(torch.tensor(float(cfg.d_model)).sqrt()
+                 .to(cfg.compute_dtype))
+
+
 def _embed_lookup(cfg, pack, tokens, spec: LayoutSpec) -> torch.Tensor:
     """tokens (G, n) -> x (G, n, D). TP: vocab-sharded gather + psum."""
     emb = pack["embed"]
-    sc = torch.sqrt(torch.tensor(float(cfg.d_model))).to(cfg.compute_dtype)
-    sc = sc.to(emb.device)
+    sc = _embed_scale(cfg)
     if not spec.dense_tp:
         return emb[tokens].to(cfg.compute_dtype) * sc
     G, D = tokens.shape[0], emb.shape[1]
@@ -137,14 +151,17 @@ def _write_pages(pool_l, k, v, page_ids, slots) -> None:
                                               *t.shape[3:]).to(pool_l.dtype)
 
 
-def _ffn(cfg, lpk, h_flat, spec: LayoutSpec, lay_exp):
-    """h_flat (G, T, D) -> (G, T, D); the TP path returns AFTER the psum."""
+def _ffn(cfg, lpk, h_flat, spec: LayoutSpec, lay_exp, trim: bool):
+    """h_flat (G, T, D) -> (G, T, D); the TP path returns AFTER the psum.
+    trim=False sizes the expert buffers at repro's static capacity (no
+    host read: the decode kinds, which run as CUDA graphs); trim=True at
+    the step's largest load (the eager prefill-chunk steps)."""
     if spec.expert_full_mesh:
         raise NotImplementedError(
             "full-mesh expert layouts (tpep) are not ported yet")
     if spec.expert_kind == "tp":
-        return ranks.psum(moe_decode_tp(cfg, lpk["moe"], h_flat))
-    return moe_decode_ep(cfg, lpk["moe"], h_flat, lay_exp)
+        return ranks.psum(moe_decode_tp(cfg, lpk["moe"], h_flat, trim=trim))
+    return moe_decode_ep(cfg, lpk["moe"], h_flat, lay_exp, trim=trim)
 
 
 def _logits(cfg, pack, x, spec: LayoutSpec) -> torch.Tensor:
@@ -158,19 +175,68 @@ def _logits(cfg, pack, x, spec: LayoutSpec) -> torch.Tensor:
     return (x @ head.t().to(x.dtype)).float()
 
 
-def _sample(cfg, pack, x, spec: LayoutSpec, gen, temperature):
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32) and a constant c < 2**32,
+    in two 16-bit halves of c so that no product leaves int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + ((x * hi) & 0xFFFF) * 65536) & _M32
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer mix (lowbias32) of int64 x in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(seed: torch.Tensor, substep: int, slots: torch.Tensor,
+                 cols: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise as a counter-based draw: a pure function of (seed,
+    substep, global slot, global vocab column) in integer torch ops, so a
+    step draws the same noise eagerly and inside a CUDA graph (the seed is
+    a device tensor the graph reads, not a host value it bakes in), and
+    TP's vocab shards and EP's whole-vocab ranks draw the same noise for a
+    (slot, column). seed: 0-d int64 in [0, 2**32); slots and cols broadcast
+    against each other -> f32 noise of their broadcast shape."""
+    base = _hash32((_hash32(seed & _M32) + substep) & _M32)
+    h = _hash32((slots + base) & _M32)
+    h = _hash32((cols + h) & _M32)
+    u = ((h >> 8).float() + 0.5) * 2.0 ** -24          # in (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+def seed_tensor(key, device) -> torch.Tensor:
+    """A sampling key (host int or 0-d tensor) as the 0-d int64 device
+    tensor `gumbel_noise` reads."""
+    if torch.is_tensor(key):
+        return key.to(device=device, dtype=torch.long)
+    return torch.tensor(int(key) & _M32, dtype=torch.long, device=device)
+
+
+def _sample(cfg, pack, x, spec: LayoutSpec, seed, temperature, *,
+            substep: int, slot0: int):
     """x (G, bs, D) -> sampled tokens (G, bs) int64 (Gumbel-max; exact).
-    Every rank holds the same tokens under TP, its own slots' under EP."""
+    Every rank holds the same tokens under TP, its own slots' under EP.
+    slot0: the global index of this data group's first slot. repro draws
+    its noise from jax.random, which torch cannot replay (ROADMAP C1)."""
     logits = _logits(cfg, pack, x, spec)
-    G, V = x.shape[0], cfg.vocab_size
+    G, bs, V = x.shape[0], x.shape[1], cfg.vocab_size
     Vloc = logits.shape[-1]
     col0 = (ranks.axis_index(G, x.device) * Vloc if spec.dense_tp
             else torch.zeros(G, dtype=torch.long, device=x.device))
     cols = col0[:, None] + torch.arange(Vloc, device=x.device)
     logits = torch.where(cols[:, None, :] < V, logits, NEG_INF)
     if temperature > 0:
-        u = torch.rand(logits.shape, generator=gen, device=logits.device)
-        g = -torch.log(-torch.log(u.clamp(min=1e-20)))
+        slots = slot0 + torch.arange(bs, device=x.device)
+        if spec.slots_sharded:
+            slots = ranks.axis_index(G, x.device)[:, None] * bs + slots
+        g = gumbel_noise(seed, substep, slots.expand(G, bs)[..., None],
+                         cols[:, None, :])
         logits = logits / temperature + g
     loc_arg = torch.argmax(logits, dim=-1)                     # first max
     if not spec.dense_tp:
@@ -187,12 +253,17 @@ def _sample(cfg, pack, x, spec: LayoutSpec, gen, temperature):
 # ---------------------------------------------------------------------------
 
 def _chunk_core(cfg, spec: LayoutSpec, pack, pool, tokens, positions,
-                valid_len, bt, gen, *, lay_exp, temperature, page, maxp, Sq):
-    """One Sq-token step on stacked per-rank inputs.
+                valid_len, bt, seed, *, lay_exp, temperature, page, maxp, Sq,
+                substep=0, slot0=0):
+    """One Sq-token step on stacked per-rank inputs. Shared verbatim by the
+    single-step builder and the fused decode loop, so both run the same
+    math; at Sq == 1 it reads no device value on the host, so it can be
+    captured in a CUDA graph.
 
     tokens (G, bs, Sq); positions/valid_len (G, bs); bt (G, bs, maxp);
     pool (G, L, 2, pages, page, Kh, dh) = the layout's KV view, updated in
-    place. Returns (next_token (G, bs), last_hidden (G, bs, D))."""
+    place; seed: 0-d int64 device tensor (read at temperature > 0).
+    Returns (next_token (G, bs), last_hidden (G, bs, D))."""
     G, bs = tokens.shape[:2]
     dev = tokens.device
     x = _embed_lookup(cfg, pack, tokens.reshape(G, -1), spec)
@@ -222,14 +293,37 @@ def _chunk_core(cfg, spec: LayoutSpec, pack, pool, tokens, positions,
             attn = ranks.psum(attn)
         h = h + attn.reshape(G, bs, Sq, -1).to(h.dtype)
         hn = apply_norm(cfg, h, lpk["mlp_norm"])
-        y = _ffn(cfg, lpk, hn.reshape(G, bs * Sq, -1), spec, lay_exp)
+        y = _ffn(cfg, lpk, hn.reshape(G, bs * Sq, -1), spec, lay_exp,
+                 trim=Sq > 1)
         h = h + y.reshape(G, bs, Sq, -1).to(h.dtype)
     h = apply_norm(cfg, h, pack["final_norm"])
     # sample at the last valid position of each slot
     last = (valid_len - 1).clamp(0, Sq - 1)
     xl = torch.gather(h, 2, last[..., None, None].expand(G, bs, 1, h.shape[-1]))
     xl = xl[:, :, 0]
-    return _sample(cfg, pack, xl, spec, gen, temperature), xl
+    return _sample(cfg, pack, xl, spec, seed, temperature, substep=substep,
+                   slot0=slot0), xl
+
+
+def _geometry(cfg, mesh, layout, cc, Bslot):
+    """Shared builder geometry: (Dd, G, spec, bs, lay_exp, view, page,
+    maxp, rank_split). rank_split maps a data group's (Bslot, ...) rows to
+    the stacked (G, bs, ...) per-rank form (EP: each rank's slot slice; TP:
+    every rank sees every slot)."""
+    Dd, G = mesh
+    spec = get_layout(layout)
+    if spec.slots_sharded and Bslot % G:
+        raise ValueError(f"layout {spec} shards {Bslot} slots over G={G}")
+    bs = Bslot // G if spec.slots_sharded else Bslot
+
+    def rank_split(a: torch.Tensor, *tail) -> torch.Tensor:
+        if spec.slots_sharded:
+            return a.reshape(G, bs, *tail)
+        return a.reshape(1, bs, *tail).expand(G, bs, *tail)
+
+    return (Dd, G, spec, bs, spec.expert_layout(cfg, G),
+            cc.view_shape(cfg, G, spec), cc.page_size,
+            cc.max_pages_per_req, rank_split)
 
 
 def build_mixed_step(cfg: ModelConfig, mesh, layout: str, cc: CacheConfig,
@@ -244,23 +338,14 @@ def build_mixed_step(cfg: ModelConfig, mesh, layout: str, cc: CacheConfig,
       pack, kv_flat (Dd, G, NE), tokens (Dd, Bslot, Sq), positions
       (Dd, Bslot), valid_len (Dd, Bslot), block_table (Dd, Bslot, maxp),
       key -> (next_token (Dd, Bslot), kv_flat[, logits (Dd, Bslot, Vp)])
-    `key` is an int seed for sampling (unused at temperature 0). kv_flat
-    is updated in place and returned. Invalid tail tokens of a short row
-    write their KV to the null page 0 and are masked out of attention."""
+    `key` is the sampling seed, a host int or a 0-d device tensor (unused
+    at temperature 0). kv_flat is updated in place and returned. Invalid
+    tail tokens of a short row write their KV to the null page 0 and are
+    masked out of attention. At Sq == 1 the step reads no device value on
+    the host and can be captured in a CUDA graph (core/residency.py)."""
     dev = require_device(device)
-    Dd, G = mesh
-    spec = get_layout(layout)
-    if spec.slots_sharded and Bslot % G:
-        raise ValueError(f"layout {spec} shards {Bslot} slots over G={G}")
-    bs = Bslot // G if spec.slots_sharded else Bslot
-    lay_exp = spec.expert_layout(cfg, G)
-    view = cc.view_shape(cfg, G, spec)
-    page, maxp = cc.page_size, cc.max_pages_per_req
-
-    def rank_split(a: torch.Tensor, *tail) -> torch.Tensor:
-        if spec.slots_sharded:
-            return a.reshape(G, bs, *tail)
-        return a.reshape(1, bs, *tail).expand(G, bs, *tail)
+    Dd, G, spec, bs, lay_exp, view, page, maxp, rank_split = _geometry(
+        cfg, mesh, layout, cc, Bslot)
 
     def step(pack, kv_flat, tokens, positions, valid_len, block_table,
              key=None):
@@ -268,20 +353,17 @@ def build_mixed_step(cfg: ModelConfig, mesh, layout: str, cc: CacheConfig,
             raise ValueError(f"kv_flat on {kv_flat.device}, step built "
                              f"for {dev}")
         sq_pack = _squeeze_pack(cfg, spec, pack)
+        seed = seed_tensor(key, dev) if temperature > 0 else None
         nxt_all, lg_all = [], []
         for d in range(Dd):
-            gen = None
-            if temperature > 0:
-                gen = torch.Generator(device=dev).manual_seed(
-                    int(key) * 1000003 + d)
             nxt, xl = _chunk_core(
                 cfg, spec, sq_pack, kv_flat[d].view(G, *view),
                 rank_split(tokens[d].long(), Sq),
                 rank_split(positions[d].long()),
                 rank_split(valid_len[d].long()),
-                rank_split(block_table[d].long(), maxp), gen,
+                rank_split(block_table[d].long(), maxp), seed,
                 lay_exp=lay_exp, temperature=temperature, page=page,
-                maxp=maxp, Sq=Sq)
+                maxp=maxp, Sq=Sq, slot0=d * Bslot)
             nxt_all.append(nxt.reshape(-1) if spec.slots_sharded else nxt[0])
             if return_logits:
                 lg = _logits(cfg, sq_pack, xl, spec)
@@ -293,3 +375,78 @@ def build_mixed_step(cfg: ModelConfig, mesh, layout: str, cc: CacheConfig,
         return out
 
     return step
+
+
+def build_decode_loop(cfg: ModelConfig, mesh, layout: str, cc: CacheConfig,
+                      Bslot: int, steps: int, *, temperature: float = 0.0,
+                      return_logits: bool = False, device="cuda"):
+    """Fuse `steps` decode substeps into one call (port of repro's
+    `build_decode_loop`, DESIGN.md §5): a Python loop over `_chunk_core`
+    where repro has `lax.fori_loop`. The sampled token is fed straight
+    back as the next input on the card, positions advance and budgets
+    decrement there, and slots whose budget is spent are masked out (their
+    K/V writes land on the null page, their outputs are 0). The body reads
+    no device value on the host, so the whole loop is captured as one CUDA
+    graph (core/residency.py).
+
+    Global signature, as repro's:
+      pack, kv_flat (Dd, G, NE), tokens (Dd, B), positions (Dd, B),
+      budgets (Dd, B), block_table (Dd, B, maxp), key
+      -> (out_tokens (Dd, B, steps), kv_flat, tokens' (Dd, B),
+          positions' (Dd, B), budgets' (Dd, B))
+    (return_logits adds each substep's logits, (Dd, B, steps, Vp): tests
+    only.) `tokens` = the last generated token per slot, its KV written at
+    `positions` on the first substep; substep i of a slot with budget b is
+    active iff i < b; out_tokens[:, :, i] is substep i's sample (0 when
+    inactive). At temperature 0 the loop is byte-identical to `steps`
+    single steps; sampled, substep i draws its noise with the same seed
+    and counter `i` (`gumbel_noise`), so substep 0 equals a single step
+    with the same key."""
+    dev = require_device(device)
+    Dd, G, spec, bs, lay_exp, view, page, maxp, rank_split = _geometry(
+        cfg, mesh, layout, cc, Bslot)
+
+    def loop(pack, kv_flat, tokens, positions, budgets, block_table,
+             key=None):
+        if kv_flat.device.type != dev.type:
+            raise ValueError(f"kv_flat on {kv_flat.device}, loop built "
+                             f"for {dev}")
+        sq_pack = _squeeze_pack(cfg, spec, pack)
+        seed = seed_tensor(key, dev) if temperature > 0 else None
+        res = ([], [], [], [], [])
+        for d in range(Dd):
+            pool = kv_flat[d].view(G, *view)
+            bt = rank_split(block_table[d].long(), maxp)
+            tok, pos = tokens[d].long(), positions[d].long()
+            bud = budgets[d].long()
+            outs, lgs = [], []
+            for i in range(steps):
+                active = (bud > 0).long()
+                nxt, xl = _chunk_core(
+                    cfg, spec, sq_pack, pool, rank_split(tok, 1),
+                    rank_split(pos), rank_split(active), bt, seed,
+                    lay_exp=lay_exp, temperature=temperature, page=page,
+                    maxp=maxp, Sq=1, substep=i, slot0=d * Bslot)
+                nxt = nxt.reshape(-1) if spec.slots_sharded else nxt[0]
+                live = active > 0
+                outs.append(torch.where(live, nxt, 0))
+                tok = torch.where(live, nxt, tok)
+                pos = pos + active
+                bud = bud - active
+                if return_logits:
+                    lg = _logits(cfg, sq_pack, xl, spec)
+                    lgs.append(torch.cat(lg.unbind(0), dim=-1)
+                               if spec.dense_tp else lg.reshape(Bslot, -1))
+            for acc, v in zip(res, (torch.stack(outs, -1), tok, pos, bud)):
+                acc.append(v)
+            if return_logits:
+                res[4].append(torch.stack(lgs, 1))
+        i32 = torch.int32
+        out = (torch.stack(res[0]).to(i32), kv_flat,
+               torch.stack(res[1]).to(i32), torch.stack(res[2]).to(i32),
+               torch.stack(res[3]).to(i32))
+        if return_logits:
+            out = out + (torch.stack(res[4]),)
+        return out
+
+    return loop

@@ -1,0 +1,199 @@
+"""Workload generators: bursty online-serving trace + RL-rollout batches
+(a copy of repro/serving/workloads.py; numpy only).
+
+Mirrors the paper's evaluation workloads (§6.2, §6.3) at configurable scale:
+  * bursty: two short Poisson bursts bracketing a quiet period; prompts
+    300-700 tokens, outputs U(800, 1200)  (scaled down by `scale`).
+  * rollout: one batch of N prompts; outputs heavy-tailed (lognormal capped),
+    inputs short/clustered — the burst-to-long-tail decay of Fig. 1(c).
+  * prefill storm: a handful of long-lived decoders hit by a sustained
+    wave of prompt-heavy arrivals — the mixed-batch TPOT stressor
+    (DESIGN.md §10; shared by bench_bursty's storm gate and the
+    byte-identity tests).
+  * qos mix: bursty interactive arrivals over a steady batch floor — the
+    multi-tenant trace the QoS scheduler is measured on (DESIGN.md §11;
+    bench_qos gates interactive p99 attainment QoS vs class-blind).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+
+from repro_torch.serving.request import Request
+
+
+@dataclass(frozen=True)
+class BurstySpec:
+    duration_s: float = 375.0
+    burst_windows: tuple = ((10.0, 25.0), (330.0, 345.0))
+    burst_rates: tuple = (80.0, 120.0)     # req/s during bursts
+    quiet_rate: float = 3.0                # req/s otherwise
+    prompt_range: tuple = (300, 700)
+    output_range: tuple = (800, 1200)
+    scale: float = 1.0                     # scales rates and lengths
+
+
+def bursty_trace(spec: BurstySpec, seed: int = 0) -> list[Request]:
+    rng = np.random.default_rng(seed)
+    reqs, rid, t = [], 0, 0.0
+    while t < spec.duration_s:
+        rate = spec.quiet_rate
+        for (s, e), r in zip(spec.burst_windows, spec.burst_rates):
+            if s <= t < e:
+                rate = r
+        rate *= spec.scale
+        t += rng.exponential(1.0 / max(rate, 1e-9))
+        if t >= spec.duration_s:
+            break
+        plen = int(rng.integers(*spec.prompt_range) * spec.scale) or 1
+        olen = int(rng.integers(*spec.output_range) * spec.scale) or 1
+        reqs.append(Request(rid=rid, prompt=list(rng.integers(5, 1000, plen)),
+                            max_new_tokens=olen, arrival_s=t))
+        rid += 1
+    return reqs
+
+
+@dataclass(frozen=True)
+class StormSpec:
+    """A prefill storm over live decoders: `n_decoders` short-prompt,
+    long-output requests start first (they are mid-decode when the storm
+    lands), then `n_storm` prompt-heavy, short-output requests arrive at a
+    steady interval. The decoders' TPOT during the storm window is the
+    number the mixed batch must protect."""
+    n_decoders: int = 4
+    decoder_prompt: int = 8
+    decoder_output: int = 60
+    n_storm: int = 12
+    storm_prompt: int = 256
+    storm_output: int = 2
+    storm_start_s: float = 0.5
+    storm_interval_s: float = 0.3
+    token_range: tuple = (5, 200)
+
+
+def storm_trace(spec: StormSpec, seed: int = 0) -> list[Request]:
+    """Arrival-ordered prefill-storm trace (deterministic lengths; only
+    the token ids are drawn from `seed`, so two engines replaying the
+    same seed see byte-identical prompts)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = spec.token_range
+    reqs = [Request(rid=i, prompt=list(rng.integers(lo, hi,
+                                                    spec.decoder_prompt)),
+                    max_new_tokens=spec.decoder_output,
+                    forced_len=spec.decoder_output, arrival_s=0.0)
+            for i in range(spec.n_decoders)]
+    for j in range(spec.n_storm):
+        reqs.append(Request(
+            rid=spec.n_decoders + j,
+            prompt=list(rng.integers(lo, hi, spec.storm_prompt)),
+            max_new_tokens=spec.storm_output, forced_len=spec.storm_output,
+            arrival_s=spec.storm_start_s + j * spec.storm_interval_s))
+    return reqs
+
+
+@dataclass(frozen=True)
+class QosMixSpec:
+    """Multi-tenant mix: a steady floor of prompt-heavy, short-output
+    batch requests with bursts of short-prompt interactive requests
+    layered on top. Under a class-blind FIFO the interactive TTFT waits
+    behind the batch floor's prefill tokens; the QoS scheduler packs
+    interactive first — that gap is bench_qos's gate. Arrivals and
+    lengths are deterministic (only token ids come from `seed`), so two
+    engines replaying the same spec see byte-identical traces."""
+    duration_s: float = 12.0
+    # batch floor: one long-prompt request every interval, for the whole
+    # trace — keeps the prefill queue non-empty so shares matter
+    batch_interval_s: float = 0.6
+    batch_prompt: int = 192
+    batch_output: int = 4
+    # interactive bursts: windows of closely-spaced chat-style requests
+    burst_windows: tuple = ((1.0, 4.0), (7.0, 10.0))
+    burst_interval_s: float = 0.25
+    inter_prompt: int = 24
+    inter_output: int = 12
+    token_range: tuple = (5, 200)
+
+
+def qos_mixed_trace(spec: QosMixSpec, seed: int = 0) -> list[Request]:
+    """Arrival-ordered, slo_class-tagged trace for the QoS benchmarks."""
+    rng = np.random.default_rng(seed)
+    lo, hi = spec.token_range
+    plan = []                               # (t, class, plen, olen)
+    t = 0.0
+    while t < spec.duration_s:
+        plan.append((t, "batch", spec.batch_prompt, spec.batch_output))
+        t += spec.batch_interval_s
+    for s, e in spec.burst_windows:
+        t = s
+        while t < min(e, spec.duration_s):
+            plan.append((t, "interactive", spec.inter_prompt,
+                         spec.inter_output))
+            t += spec.burst_interval_s
+    plan.sort(key=lambda p: (p[0], p[1]))
+    return [Request(rid=i, prompt=list(rng.integers(lo, hi, plen)),
+                    max_new_tokens=olen, forced_len=olen, arrival_s=t,
+                    slo_class=cls)
+            for i, (t, cls, plen, olen) in enumerate(plan)]
+
+
+@dataclass(frozen=True)
+class RolloutSpec:
+    num_prompts: int = 2048
+    prompt_median: int = 120
+    prompt_max: int = 1352
+    output_median: int = 1510
+    output_p99: int = 10386
+    output_cap: int = 32768
+    scale: float = 1.0
+    # completions sampled per distinct prompt (RL rollouts draw many
+    # samples from each question): requests arrive in groups of
+    # `samples_per_prompt` sharing one byte-identical prompt — the
+    # shared-prefix structure the engine's prefix cache exploits
+    samples_per_prompt: int = 1
+    # prompt token ids are drawn from [lo, hi) — keep hi <= the model's
+    # vocab_size (out-of-vocab ids embed differently under the sharded vs
+    # replicated lookup and break cross-layout byte-identity)
+    token_range: tuple = (5, 1000)
+
+
+def replay(frontend, reqs: list[Request]) -> dict:
+    """Submit an arrival-ordered trace to an AsyncEngine and return its
+    token streams keyed by rid (iterate them — or call
+    `frontend.run_until_complete()` — to drive the event loop)."""
+    return {r.rid: frontend.submit(r)
+            for r in sorted(reqs, key=lambda r: (r.arrival_s, r.rid))}
+
+
+def rollout_batch(spec: RolloutSpec, seed: int = 0) -> list[Request]:
+    """Heavy-tailed output lengths: lognormal fit to (median, p99), capped.
+
+    Scaling is monotone in BOTH directions: `scale` multiplies the request
+    count and every length distribution, up or down (a scale of 2 doubles
+    the batch; the old code silently clamped num_prompts at scale >= 1 and
+    could floor the prompt clamp to 1)."""
+    rng = np.random.default_rng(seed)
+    mu = math.log(spec.output_median * spec.scale)
+    # p99 = exp(mu + 2.326 sigma)
+    sigma = (math.log(max(spec.output_p99 * spec.scale, 2.0)) - mu) / 2.326
+    n = max(1, int(round(spec.num_prompts * spec.scale)))
+    s = max(1, spec.samples_per_prompt)
+    n_prompts = max(1, -(-n // s))
+    outs = np.minimum(np.exp(mu + sigma * rng.standard_normal(n)),
+                      max(spec.output_cap * spec.scale, 1.0)).astype(int)
+    outs = np.maximum(outs, 1)
+    pcap = max(1, int(spec.prompt_max * spec.scale))
+    plens = np.minimum(
+        rng.gamma(4.0, max(spec.prompt_median * spec.scale, 1.0) / 4.0,
+                  n_prompts).astype(int) + 1,
+        pcap)
+    lo, hi = spec.token_range
+    prompts = [list(rng.integers(lo, hi, plens[i])) for i in range(n_prompts)]
+    reqs = []
+    for i in range(n):
+        reqs.append(Request(
+            rid=i, prompt=list(prompts[i // s]),
+            max_new_tokens=int(outs[i]), forced_len=int(outs[i]),
+            arrival_s=0.0))
+    return reqs

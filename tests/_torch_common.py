@@ -25,7 +25,7 @@ def jax_params(jcfg, seed: int = 0):
     from repro.models.registry import init_params
     from repro_torch.bridge import params_from_jax
     jp = init_params(jcfg, jax.random.PRNGKey(seed))
-    return jp, params_from_jax(jax.tree.map(np.asarray, jp))
+    return jp, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def to_jnp(t: torch.Tensor):

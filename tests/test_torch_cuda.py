@@ -9,12 +9,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.policy import PolicyConfig
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.moe_gemm.ops import grouped_matmul
 from repro_torch.kernels.moe_gemm.ref import grouped_matmul_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
 
 pytestmark = pytest.mark.cuda
+# the policy never switches on its own: switches come from the test
+STATIC = PolicyConfig(t_high=10**9, t_low=-1, cooldown_s=10**9)
 
 
 @pytest.fixture
@@ -287,7 +290,8 @@ def test_switch_on_card_keeps_outputs(card, G):
     def run(chunk, switch_at=()):
         rng = np.random.default_rng(0)
         eng = MoebiusEngine(cfg, (1, G), cc, params_global=params,
-                            ecfg=EngineConfig(ladder=(4, 8), prefill_chunk=8,
+                            ecfg=EngineConfig(policy=STATIC,
+                                              ladder=(4, 8), prefill_chunk=8,
                                               chunk_layers=chunk),
                             device=card)
         for i in range(6):
@@ -310,3 +314,175 @@ def test_switch_on_card_keeps_outputs(card, G):
                    "pack_peer_chunks", "pack_width_chunks",
                    "interleave_shards", "interleave_width_shards"):
             assert dispatch.calls(op) > 0, op
+
+
+# ---------------------------------------------------------------------------
+# Resident runtimes: CUDA graphs at fixed addresses (core/residency.py)
+# ---------------------------------------------------------------------------
+
+def _graph_model(dtype=torch.bfloat16):
+    """A small MoE with the head dim the attention kernel takes."""
+    from repro_torch.configs import get_config
+    return get_config("qwen3-235b-a22b").reduced(
+        num_layers=2, d_model=128, num_heads=8, num_kv_heads=2, head_dim=64,
+        num_experts=8, top_k=2, d_expert=64, vocab_size=512,
+        capacity_factor=8.0, param_dtype=dtype, compute_dtype=dtype)
+
+
+_GRAPH_CC = dict(page_size=4, pages_ep=40, max_pages_per_req=4)
+
+
+def _graph_engine(card, dtype=torch.bfloat16, **kw):
+    """A warmed engine (every decode graph captured) on the card."""
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.kvcache import CacheConfig
+    eng = MoebiusEngine(_graph_model(dtype), (1, 2),
+                        CacheConfig(**_GRAPH_CC),
+                        ecfg=EngineConfig(policy=STATIC, ladder=(4, 8),
+                                          prefill_chunk=8, **kw),
+                        device=card)
+    eng.warmup()
+    return eng
+
+
+def _random_rows(eng, B, rng, horizon=1):
+    """Distinct pages per slot (never the null page), positions that leave
+    room for `horizon` more tokens, random tokens; random K/V everywhere."""
+    cc, cfg = eng.cc, eng.cfg
+    maxp, page = cc.max_pages_per_req, cc.page_size
+    pages = 1 + np.arange(B * maxp).reshape(B, maxp)
+    pos = rng.integers(0, maxp * page - horizon, B)
+    toks = rng.integers(1, cfg.vocab_size, B)
+    kv = eng.ex.kv_flat
+    kv.copy_(torch.from_numpy(rng.standard_normal(kv.shape)).to(kv))
+    return toks, pos, pages
+
+
+def _no_null(eng, kv):
+    """The KV buffer's pages past the null page 0 (dead slots race on it,
+    ROADMAP C5), as raw bits."""
+    view = eng.cc.view_shape(eng.cfg, eng.G, eng.active)
+    return kv[0].view(eng.G, *view)[:, :, :, 1:].contiguous().view(
+        torch.int16)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+@pytest.mark.parametrize("layout", ["tp", "ep"])
+def test_graphed_step_matches_eager(card, layout, temperature):
+    """One decode step replayed from its graph and run eagerly on the same
+    staged inputs: byte-identical tokens and K/V, sampled ones too (the
+    seed is a staged device tensor); the replay goes through no kernel
+    wrapper (the graph holds the launches)."""
+    eng = _graph_engine(card, start_layout=layout, temperature=temperature)
+    ex, B = eng.ex, 8
+    toks, pos, pages = _random_rows(eng, B, np.random.default_rng(1))
+    stage = ex._stage(B, 1)
+    t, p, vl, bt = stage.acquire()
+    t[0, :, 0], p[0], vl[0], bt[0] = toks, pos, 1, pages
+    stage.upload()
+    ex._stage_key(5)
+    kv0 = ex.kv_flat.clone()
+    dispatch.reset_counts()
+    got = ex._mixed_fn(ex.active, B, 1)().clone()
+    kv_graph = ex.kv_flat.clone()
+    torch.cuda.synchronize()
+    assert dispatch.calls("paged_attention") == 0
+    ex.kv_flat.copy_(kv0)
+    want, _ = ex._step_fn(ex.active, B, 1)(
+        ex._assemble_pack(ex.active), ex.kv_flat, *stage.dev, ex._key.dev[0])
+    torch.cuda.synchronize()
+    assert dispatch.calls("paged_attention") == eng.cfg.num_layers
+    assert torch.equal(got, want)
+    assert torch.equal(kv_graph.view(torch.int16),
+                       ex.kv_flat.view(torch.int16))
+
+
+@pytest.mark.parametrize("layout", ["tp", "ep"])
+def test_fused_graph_matches_single_graphs(card, layout):
+    """The fused loop's graph for N=4 gives the tokens and K/V of four
+    graphed single steps, slots whose budget runs out included."""
+    N, B = 4, 8
+    eng = _graph_engine(card, start_layout=layout, decode_steps=N)
+    ex = eng.ex
+    rng = np.random.default_rng(2)
+    toks, pos, pages = _random_rows(eng, B, rng, horizon=N)
+    bud = np.array([4, 4, 3, 1, 4, 0, 2, 4])
+    st = ex._dstate_for(B)
+    st.reset(ex.active)
+    st.apply([(0, s, int(toks[s]), int(pos[s]), int(bud[s]),
+               pages[s].tolist()) for s in range(B)], [])
+    ex._stage_key(0)
+    kv0 = ex.kv_flat.clone()
+    fused = ex._decode_loop_fn(ex.active, B, N)()[0].cpu().numpy()
+    kv_fused = _no_null(eng, ex.kv_flat)
+    ex.kv_flat.copy_(kv0)
+    stage, single = ex._stage(B, 1), np.zeros((B, N), np.int64)
+    tok, p_, b_ = toks.copy(), pos.copy(), bud.copy()
+    for i in range(N):
+        live = b_ > 0
+        t, p, vl, bt = stage.acquire()
+        t[0, :, 0], p[0], vl[0], bt[0] = tok, p_, live, pages
+        stage.upload()
+        ex._stage_key(0)
+        nxt = ex._mixed_fn(ex.active, B, 1)()[0].cpu().numpy()
+        single[:, i] = np.where(live, nxt, 0)
+        tok = np.where(live, nxt, tok)
+        p_, b_ = p_ + live, b_ - live
+    assert np.array_equal(fused, single)
+    assert torch.equal(kv_fused, _no_null(eng, ex.kv_flat))
+
+
+def test_switches_capture_nothing_after_warmup(card):
+    """Warmup captures every (layout, bank, rung, kind); a monolithic
+    tp->ep switch keeps the store's and the KV buffer's addresses, a
+    chunked ep->tp switch lands on the second bank, no graph is captured
+    after warmup, and the greedy tokens equal the never-switched run's (in
+    f32: in bf16 TP's partial sums round apart from EP's)."""
+    from repro_torch.serving.request import Request
+
+    def run(switch_at=()):
+        eng = _graph_engine(card, torch.float32, start_layout="tp",
+                            chunk_layers=1, decode_steps=4)
+        rt, ex = eng.ex.rt, eng.ex
+        assert len(rt.executables) == 2 * 2 * 2 * 2    # bank layout rung kind
+        ptrs = ([v.data_ptr() for v in ex._stores[0].values()],
+                ex._kvs[0].data_ptr())
+        rng = np.random.default_rng(0)
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=list(rng.integers(
+                5, 500, int(rng.integers(3, 12)))), max_new_tokens=12,
+                arrival_s=0.0))
+        i = 0
+        while eng.sched.has_work():
+            if i in switch_at:
+                eng.ecfg.chunk_layers = 0 if eng.active == "tp" else 1
+                eng.execute_switch("ep" if eng.active == "tp" else "tp")
+                if eng.active == "ep":
+                    assert ex._bank == 0 and ptrs == (
+                        [v.data_ptr() for v in ex._experts.values()],
+                        ex.kv_flat.data_ptr())
+            eng.step()
+            i += 1
+        eng.run()
+        assert rt.late_builds == 0 and len(rt.executables) == 16
+        assert sum(rt.replays().values()) > 0
+        return eng, {r.rid: r.output for r in eng.finished}
+
+    _, base = run()
+    eng, out = run(switch_at=(3, 8))
+    assert [r.chunks for r in eng.switch_records] == [1, 2]
+    assert eng.ex._bank == 1 and eng.active == "tp"
+    assert out == base
+
+
+def test_each_graph_holds_both_kernels(card):
+    """Every captured graph launched paged_attention once and the grouped
+    GEMM twice per layer and substep at its capture; replays add no
+    wrapper count but are counted per graph."""
+    N = 4
+    eng = _graph_engine(card, start_layout="ep", decode_steps=N)
+    L = eng.cfg.num_layers
+    for key, e in eng.ex.rt.executables.items():
+        n = N if key[1] == "decode_loop" else 1
+        assert e.launches.get("paged_attention") == L * n, (key, e.launches)
+        assert e.launches.get("grouped_matmul") == 2 * L * n, key

@@ -11,12 +11,15 @@ from repro.serving.engine import EngineConfig as JEngineConfig
 from repro.serving.engine import MoebiusEngine as JMoebiusEngine
 from repro.serving.kvcache import CacheConfig as JCacheConfig
 from repro.serving.request import Request as JRequest
+from repro_torch.core.policy import PolicyConfig as PortPolicy
 from repro_torch.serving.engine import EngineConfig, MoebiusEngine
 from repro_torch.serving.kvcache import CacheConfig
 from repro_torch.serving.request import Request
 from tests._torch_common import jax_params, port_tiny_moe
 
 torch.set_num_threads(1)
+# the policy never switches on its own: switches come from the test
+STATIC = PortPolicy(t_high=10**9, t_low=-1, cooldown_s=10**9)
 CC = dict(page_size=4, pages_ep=64, max_pages_per_req=16)
 
 
@@ -44,7 +47,8 @@ def setup(tiny_moe):
 
 def _serve(cfg, tp, layout, G, reqs):
     eng = MoebiusEngine(cfg, (1, G), CacheConfig(**CC), params_global=tp,
-                        ecfg=EngineConfig(start_layout=layout, ladder=(4, 8),
+                        ecfg=EngineConfig(policy=STATIC,
+                                          start_layout=layout, ladder=(4, 8),
                                           prefill_chunk=8),
                         device="cpu")
     for r in reqs:
@@ -83,11 +87,12 @@ def test_engine_rejects_unported_options():
     with pytest.raises(TypeError):
         EngineConfig(prefix_cache=True)
     with pytest.raises(TypeError):
-        EngineConfig(decode_steps=4)
+        EngineConfig(qos=True)
     cfg = port_tiny_moe()
     with pytest.raises(NotImplementedError):
         MoebiusEngine(cfg, (1, 2), CacheConfig(**CC),
-                      ecfg=EngineConfig(start_layout="tpep"), device="cpu")
+                      ecfg=EngineConfig(policy=STATIC,
+                                        start_layout="tpep"), device="cpu")
 
 
 def test_sampled_serving_is_seeded(setup):
@@ -98,7 +103,8 @@ def test_sampled_serving_is_seeded(setup):
 
     def run(seed):
         eng = MoebiusEngine(cfg, (1, 2), CacheConfig(**CC), params_global=tp,
-                            ecfg=EngineConfig(start_layout="ep", ladder=(4, 8),
+                            ecfg=EngineConfig(policy=STATIC,
+                                              start_layout="ep", ladder=(4, 8),
                                               prefill_chunk=8, temperature=1.0,
                                               seed=seed), device="cpu")
         for r in _trace(Request):

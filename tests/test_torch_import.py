@@ -30,7 +30,7 @@ def test_port_imports_no_jax_or_repro():
                          text=True, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
-    assert int(out.stdout.split()[1]) >= 20     # every module was imported
+    assert int(out.stdout.split()[1]) >= 48     # every module was imported
 
 
 def test_chip_smoke_imports_no_jax_or_repro():
@@ -43,14 +43,16 @@ def test_chip_smoke_imports_no_jax_or_repro():
 
 
 def _entry_points():
+    from repro_torch.bridge import params_from_jax
     from repro_torch.core.switch_exec import SwitchExecutor
     from repro_torch.models.registry import init_params
     from repro_torch.serving.engine import MoebiusEngine
-    from repro_torch.serving.steps import build_mixed_step
-    return init_params, MoebiusEngine, build_mixed_step, SwitchExecutor
+    from repro_torch.serving.steps import build_decode_loop, build_mixed_step
+    return (init_params, MoebiusEngine, build_mixed_step, SwitchExecutor,
+            build_decode_loop, params_from_jax)
 
 
-@pytest.mark.parametrize("idx", [0, 1, 2, 3])
+@pytest.mark.parametrize("idx", [0, 1, 2, 3, 4, 5])
 def test_entry_points_default_to_cuda(idx):
     fn = _entry_points()[idx]
     sig = inspect.signature(fn)
@@ -61,8 +63,8 @@ def test_entry_points_raise_without_card(monkeypatch):
     from repro_torch.serving.kvcache import CacheConfig
     from tests._torch_common import port_tiny_moe
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    init_params, MoebiusEngine, build_mixed_step, SwitchExecutor = \
-        _entry_points()
+    (init_params, MoebiusEngine, build_mixed_step, SwitchExecutor,
+     build_decode_loop, params_from_jax) = _entry_points()
     cfg = port_tiny_moe()
     cc = CacheConfig(page_size=4, pages_ep=8, max_pages_per_req=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -73,6 +75,10 @@ def test_entry_points_raise_without_card(monkeypatch):
         MoebiusEngine(cfg, (1, 1), cc)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SwitchExecutor(cfg, cc, (1, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_decode_loop(cfg, (1, 1), "tp", cc, 4, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax({"w": [1.0]})
     # the CPU runs only when asked for
     assert init_params(cfg, device="cpu")["embed"].device.type == "cpu"
 

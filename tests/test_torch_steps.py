@@ -58,7 +58,7 @@ def test_bridge_roundtrip_bit_exact(setup):
         np.testing.assert_array_equal(node, np.asarray(leaf))
     # bf16 leaves cross bit-exactly (widened to f32 on the way back)
     b = jnp.asarray(np.linspace(-3, 3, 7, dtype=np.float32), jnp.bfloat16)
-    t = params_from_jax({"w": np.asarray(b)})["w"]
+    t = params_from_jax({"w": np.asarray(b)}, device="cpu")["w"]
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(params_to_numpy({"w": t})["w"],
                                   np.asarray(b.astype(jnp.float32)))

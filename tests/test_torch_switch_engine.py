@@ -16,12 +16,15 @@ from repro.serving.engine import EngineConfig as JEngineConfig
 from repro.serving.engine import MoebiusEngine as JMoebiusEngine
 from repro.serving.kvcache import CacheConfig as JCacheConfig
 from repro.serving.request import Request as JRequest
+from repro_torch.core.policy import PolicyConfig as PortPolicy
 from repro_torch.serving.engine import EngineConfig, MoebiusEngine
 from repro_torch.serving.kvcache import CacheConfig
 from repro_torch.serving.request import Request
 from tests._torch_common import jax_params, port_tiny_moe
 
 torch.set_num_threads(1)
+# the policy never switches on its own: switches come from the test
+STATIC = PortPolicy(t_high=10**9, t_low=-1, cooldown_s=10**9)
 CC = dict(page_size=4, pages_ep=32, max_pages_per_req=16)
 
 
@@ -40,7 +43,8 @@ def setup(tiny_moe):
 
 def _run(cfg, params, G, switch_at=None, start="tp", chunk=0):
     eng = MoebiusEngine(cfg, (1, G), CacheConfig(**CC), params_global=params,
-                        ecfg=EngineConfig(start_layout=start, ladder=(4, 8),
+                        ecfg=EngineConfig(policy=STATIC,
+                                          start_layout=start, ladder=(4, 8),
                                           prefill_chunk=8,
                                           chunk_layers=chunk), device="cpu")
     for r in _reqs(Request):
@@ -91,7 +95,8 @@ def test_switch_round_trip_restores_expert_store(setup, G, direct):
     cc = CacheConfig(**CC)
     mk = lambda start, chunk: MoebiusEngine(  # noqa: E731
         cfg, (1, G), cc, params_global=tp,
-        ecfg=EngineConfig(start_layout=start, chunk_layers=chunk,
+        ecfg=EngineConfig(policy=STATIC,
+                          start_layout=start, chunk_layers=chunk,
                           direct_reshard=direct),
         device="cpu")
     eng, ep_ref = mk("tp", 0), mk("ep", 0)._experts
@@ -113,7 +118,8 @@ def test_abort_at_chunk_boundary_keeps_outputs(setup, baselines):
     later switch still commits."""
     _, _, cfg, tp = setup
     eng = MoebiusEngine(cfg, (1, 2), CacheConfig(**CC), params_global=tp,
-                        ecfg=EngineConfig(ladder=(4, 8), prefill_chunk=8,
+                        ecfg=EngineConfig(policy=STATIC,
+                                          ladder=(4, 8), prefill_chunk=8,
                                           chunk_layers=1), device="cpu")
     for r in _reqs(Request):
         eng.submit(r)
@@ -156,7 +162,8 @@ def test_switched_port_matches_repro(setup):
     jeng.run()
     ref = {r.rid: list(r.output) for r in jeng.finished}
     eng = MoebiusEngine(cfg, (1, 2), CacheConfig(**CC), params_global=tp,
-                        ecfg=EngineConfig(ladder=(4, 8), prefill_chunk=8,
+                        ecfg=EngineConfig(policy=STATIC,
+                                          ladder=(4, 8), prefill_chunk=8,
                                           chunk_layers=1), device="cpu")
     for r in _reqs(Request):
         eng.submit(r)
@@ -176,7 +183,8 @@ def test_switched_port_matches_repro(setup):
 def test_execute_switch_rejects_bad_targets(setup):
     _, _, cfg, tp = setup
     eng = MoebiusEngine(cfg, (1, 2), CacheConfig(**CC), params_global=tp,
-                        ecfg=EngineConfig(layouts=("tp",)), device="cpu")
+                        ecfg=EngineConfig(policy=STATIC,
+                                          layouts=("tp",)), device="cpu")
     with pytest.raises(ValueError, match="active"):
         eng.execute_switch("tp")
     with pytest.raises(ValueError, match="resident"):
@@ -184,4 +192,5 @@ def test_execute_switch_rejects_bad_targets(setup):
     for bad in (("tp", "tpep"), ("tp", "ep@2")):
         with pytest.raises(NotImplementedError):
             MoebiusEngine(cfg, (1, 2), CacheConfig(**CC), params_global=tp,
-                          ecfg=EngineConfig(layouts=bad), device="cpu")
+                          ecfg=EngineConfig(policy=STATIC,
+                                            layouts=bad), device="cpu")
