@@ -74,6 +74,24 @@ Phases (any failure exits non-zero):
                capture nothing after warmup, and finish every request at
                its length; prints each switch's pause and total, the graph
                pool and the second bank as shares of the card's memory.
+  9. prefix  — repro's default engine (`EngineConfig()`: prefix cache with
+               copy-on-write pages, QoS, mixed batch). First the small f32
+               model of phase 3 on shared prompts: cache on, and switched
+               tp->ep->tp, byte-identical to cache off. Then the serve
+               model on 16 greedy requests in 4 groups sharing a 200-token
+               head (the shape of RL rollouts and shared system prompts):
+               served eager with the cache off and never switched (the
+               reference), eager with the cache on, two-phase
+               (`mixed_batch=False`) from graphs, and from graphs (fused 8)
+               with a tp->ep monolithic switch, an ep->tp chunked switch
+               that a scripted chunk_fail aborts (ep stays live, store,
+               K/V and bank untouched) and one that commits. Every run's
+               tokens equal the reference's wherever its top-2 margin is
+               clear; the cache must hit and fork pages, prefill fewer
+               tokens, launch the kv_pack kernels for its CoW copies
+               (counted apart from the switch's), capture nothing after
+               warmup, and give every page back once cleared. Prints tok/s,
+               prefill tokens saved, and one CoW fork's time.
 
 Prints the card's name and power limit and a JSON line of per-kernel
 numbers; the last line is the JSON object
@@ -516,39 +534,6 @@ def _tree_to(tree, dev):
 # phase 4: serve qwen3-235b-a22b at full width (4 layers) in TP and EP
 # ---------------------------------------------------------------------------
 
-def first_token_logits(eng, reqs) -> "list":
-    """Logits at each request's last prompt position, through the engine's
-    own pack and a fresh KV buffer (one request per call)."""
-    import numpy as np
-    import torch
-
-    from repro_torch.serving.steps import build_mixed_step
-    ex = eng.ex
-    chunk = ex.prefill_chunk
-    B = 2 if ex.active.slots_sharded else 1
-    step = build_mixed_step(eng.cfg, (1, eng.G), ex.active, eng.cc, B,
-                            Sq=chunk, return_logits=True)
-    pack = ex._assemble_pack(ex.active)
-    out = []
-    for r in reqs:
-        kv = torch.zeros_like(ex.kv_flat)
-        prompt = np.asarray(r.prompt, np.int32)
-        bt = np.zeros((1, B, eng.cc.max_pages_per_req), np.int32)
-        bt[0, 0] = np.arange(1, eng.cc.max_pages_per_req + 1)
-        for s in range(0, len(prompt), chunk):
-            n = min(chunk, len(prompt) - s)
-            toks = np.zeros((1, B, chunk), np.int32)
-            toks[0, 0, :n] = prompt[s:s + n]
-            pos = np.zeros((1, B), np.int32)
-            pos[0, 0] = s
-            vl = np.zeros((1, B), np.int32)
-            vl[0, 0] = n
-            T = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
-            _, kv, lg = step(pack, kv, T(toks), T(pos), T(vl), T(bt))
-        out.append(lg[0, 0, :eng.cfg.vocab_size].float().cpu())
-    return out
-
-
 def kernel_group(name: str) -> str:
     """The port's kernel a device kernel name belongs to: attention's split
     and combine kernels (bf16) and serial kernel (f32), the GEMM's wgmma
@@ -686,6 +671,12 @@ def decode_window(eng, cfg, N: int, what: str) -> dict:
     return out
 
 
+# The phases before `prefix` serve as they were written, before the prefix
+# cache and QoS were ported: both off. `EngineConfig()` turns them on, as
+# repro's does; the prefix phase runs with them.
+NO_CACHE = dict(prefix_cache=False, qos=False)
+
+
 def static_policy():
     """A policy that never switches on its own: the serve and switch
     phases switch by request, the policy phase by its own policy."""
@@ -733,7 +724,7 @@ def phase_serve(results: dict) -> None:
     print(f"init_params on card: {time.time() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     specs = serve_prompts(cfg)
-    firsts, logits = {}, {}
+    firsts, tf = {}, {}
     for layout in ("tp", "ep"):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
@@ -741,7 +732,8 @@ def phase_serve(results: dict) -> None:
                             ecfg=EngineConfig(start_layout=layout,
                                               prefill_chunk=128, seed=SEED,
                                               graphs=False,
-                                              policy=static_policy()))
+                                              policy=static_policy(),
+                                              **NO_CACHE))
         torch.cuda.synchronize()
         t_pack = time.time() - t0
         reqs = [Request(rid=i, prompt=p, max_new_tokens=32, arrival_s=0.0)
@@ -787,13 +779,14 @@ def phase_serve(results: dict) -> None:
         for k, n in (("paged_attention", n_att), ("grouped_matmul", n_gmm)):
             results["launches"][k] = results["launches"].get(k, 0) + n
         firsts[layout] = {r.rid: r.output[0] for r in eng.finished}
-        logits[layout] = first_token_logits(eng, reqs)
-        for r, lg in zip(reqs, logits[layout]):
-            check(bool(torch.isfinite(lg).all()),
-                  f"{layout}: non-finite logits for request {r.rid}")
-            check(int(lg.argmax()) == firsts[layout][r.rid] or
-                  float(lg.topk(2).values.diff().abs()) <= BF16_TOL * float(
-                      lg.abs().max()),
+        # the first-token logits, finite, through the engine's own pack,
+        # one request per step
+        tf[layout] = {r.rid: teacher_forced(
+            eng, [r], {r.rid: [firsts[layout][r.rid]]},
+            eng.ex.prefill_chunk)[r.rid][0] for r in reqs}
+        for r in reqs:
+            m, big, (a, _) = tf[layout][r.rid]
+            check(a == firsts[layout][r.rid] or m <= BF16_TOL * big,
                   f"{layout}: request {r.rid} first token disagrees with "
                   f"its own logits")
         results.setdefault("eager_window", {})[layout] = decode_window(
@@ -805,21 +798,19 @@ def phase_serve(results: dict) -> None:
                           ecfg=EngineConfig(start_layout=layout,
                                             prefill_chunk=128, seed=SEED,
                                             graphs=False,
-                                            policy=static_policy())),
+                                            policy=static_policy(),
+                                            **NO_CACHE)),
             [Request(rid=i, prompt=p, max_new_tokens=32, arrival_s=0.0)
              for i, p in enumerate(specs)], layout)
         gc.collect()
         torch.cuda.empty_cache()
     compared = 0
     for i in range(len(specs)):
-        lt, le = logits["tp"][i], logits["ep"][i]
-        top2 = lt.topk(2).values
-        margin = float(top2[0] - top2[1])
-        tol = BF16_TOL * float(lt.abs().max())
-        diff = float((lt - le).abs().max())
+        margin, big, _ = tf["tp"][i]
+        tol = BF16_TOL * big
         print(f"request {i}: first token tp={firsts['tp'][i]} "
               f"ep={firsts['ep'][i]} margin={margin:.4f} tol={tol:.4f} "
-              f"max|logit tp-ep|={diff:.4f}", flush=True)
+              f"ep margin={tf['ep'][i][0]:.4f}", flush=True)
         if margin > tol:
             compared += 1
             check(firsts["tp"][i] == firsts["ep"][i],
@@ -858,7 +849,8 @@ def phase_parity_switch() -> None:
                                               ladder=(4, 8),
                                               prefill_chunk=32,
                                               chunk_layers=chunk,
-                                              policy=static_policy()))
+                                              policy=static_policy(),
+                                              **NO_CACHE))
         for i in range(6):
             eng.submit(Request(rid=i, prompt=rng.integers(
                 1, cfg.vocab_size, int(rng.integers(20, 61))).tolist(),
@@ -987,7 +979,7 @@ def phase_switch(results: dict) -> None:
                                           layouts=("tp", "ep"),
                                           prefill_chunk=128, seed=SEED,
                                           graphs=False,
-                                          policy=static_policy()))
+                                          policy=static_policy(), **NO_CACHE))
     del params                  # the engine holds the one copy it serves
     gc.collect()
     torch.cuda.empty_cache()
@@ -1194,7 +1186,8 @@ def phase_graphs(results: dict) -> None:
                                 ecfg=EngineConfig(start_layout=layout,
                                                   prefill_chunk=128,
                                                   seed=SEED, decode_steps=N,
-                                                  policy=static_policy()))
+                                                  policy=static_policy(),
+                                                  **NO_CACHE))
             torch.cuda.synchronize()
             t0 = time.time()
             eng.warmup()
@@ -1335,7 +1328,7 @@ def phase_policy(results: dict) -> None:
                             start_layout="tp", prefill_chunk=128, seed=SEED,
                             decode_steps=8, chunk_layers=1,
                             clock=VirtualClock(), dispatch_dt=POLICY_DT,
-                            policy=pcfg))
+                            policy=pcfg, **NO_CACHE))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1445,6 +1438,625 @@ def phase_policy(results: dict) -> None:
           f"device memory {peak / 2**30:.2f} GiB", flush=True)
     for k, n in eager.items():
         results["launches"][k] = results["launches"].get(k, 0) + n
+    del eng, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: repro's default engine — the prefix cache (copy-on-write pages on
+# the kv_pack kernels), QoS, the two-phase iteration, scripted faults
+# ---------------------------------------------------------------------------
+
+KV_ROWS = ("gather_pages_rows", "scatter_pages_rows")
+# the main run's script, in engine iterations (the scheduler is host-only,
+# so the iterations depend on token counts, not on the model's widths; each
+# switch finds shared pages
+# and requests mid-prefill, which a chunked switch's decode steps leave live)
+PREFIX_MONO_AT = 4          # tp->ep monolithic, shared pages live
+PREFIX_FAIL_AT = 6          # ep->tp chunked, chunk_fail at chunk 1: aborts
+PREFIX_RETRY_AT = 9         # ep->tp chunked again: commits
+
+
+def prefix_trace(vocab: int, groups: int = 4, size: int = 4, head: int = 200,
+                 suffix=(8, 65), new: int = 32, seed: int = SEED + 16):
+    """Shared-prefix traffic (RL rollouts drawing several samples per
+    prompt; chat under one system prompt): `groups` prompt heads of `head`
+    tokens, each sent by `size` requests with a distinct suffix, `new`
+    greedy tokens each, all at t=0. A head of 200 is 12 full pages of 16 and
+    a partial one, so followers share 12 pages (192 tokens) and every
+    indexed partial tail is forked before its first append."""
+    import numpy as np
+
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for g in range(groups):
+        stem = rng.integers(1, vocab, head).tolist()
+        for k in range(size):
+            tail = rng.integers(1, vocab, int(rng.integers(*suffix))).tolist()
+            reqs.append(Request(rid=g * size + k, prompt=stem + tail,
+                                max_new_tokens=new, arrival_s=0.0))
+    return reqs
+
+
+def count_cow(eng) -> dict:
+    """Tally the kv_pack launches of the engine's CoW page copies apart
+    from the switch's: each call of the executor's mover adds what it
+    launched. Returns the live tally."""
+    from repro_torch.kernels import dispatch
+    tally = {op: 0 for op in KV_ROWS}
+    inner = eng.ex.copy_pages
+
+    def copy_pages(*a, **k):
+        before = {op: dispatch.calls(op) for op in KV_ROWS}
+        inner(*a, **k)
+        for op in KV_ROWS:
+            tally[op] += dispatch.calls(op) - before[op]
+
+    eng.ex.copy_pages = copy_pages
+    return tally
+
+
+def note_hits(eng) -> set:
+    """The rids whose prefill acquired shared (prefix-cached) pages: the
+    followers. Returns the live set."""
+    hits, inner = set(), eng.sched._acquire_pages
+
+    def acquire(r, *a, **k):
+        got = inner(r, *a, **k)
+        if got is not None and got[2] > 0:
+            hits.add(r.rid)
+        return got
+
+    eng.sched._acquire_pages = acquire
+    return hits
+
+
+def serve_trace(eng, reqs, hooks=None, limit: int = 5000):
+    """Submit and serve to completion; `hooks` maps an iteration index to a
+    call made before that iteration. Returns (rid -> tokens, wall seconds,
+    iterations)."""
+    import torch
+    for r in reqs:
+        eng.submit(r)
+    hooks = dict(hooks or {})
+    t0 = time.time()
+    i = 0
+    while eng.sched.has_work():
+        if i in hooks:
+            hooks.pop(i)()
+        eng.step()
+        i += 1
+        check(i < limit, "prefix: engine made no progress")
+    eng.run()
+    torch.cuda.synchronize()
+    check(not hooks, f"prefix: hooks never reached {sorted(hooks)}")
+    return {r.rid: list(r.output) for r in eng.finished}, time.time() - t0, i
+
+
+def teacher_forced(eng, reqs, outs, chunk: int, ids=None, lead: int = 0,
+                   dec_sq: int = 1) -> dict:
+    """rid -> one entry per token of `outs[rid]`, from the engine's own
+    pack in its active layout: every request a row of one step (rows split
+    over the ranks when the layout shards slots, padded with empty rows to
+    a multiple of the ranks), the prompts in chunks of
+    `chunk` (after a first one of `lead` tokens, if given), then the tokens
+    of `outs` fed back one at a time into a fresh KV buffer, in steps of
+    `dec_sq` positions (1: decode steps; more: a decode row's shape inside
+    a mixed step). Without `ids` an entry is (top-2 margin, max |logit|,
+    (first, second) token ids); with `ids` (a first call's result) it is
+    the margin between those two ids here. Every logit row read must be
+    finite."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.steps import build_mixed_step
+    ex, cc, dev, spec = eng.ex, eng.cc, eng.device, eng.ex.active
+    n, maxp = len(reqs), cc.max_pages_per_req
+    B = -(-n // eng.G) * eng.G if spec.slots_sharded else n
+    bs = B // eng.G if spec.slots_sharded else B
+    per = -(-max(len(r.prompt) + len(outs[r.rid]) for r in reqs)
+            // cc.page_size)
+    pages = cc.view_shape(eng.cfg, eng.G, spec)[2]
+    check(bs * per < pages, f"teacher forcing: {bs} x {per} pages do not fit "
+                            f"{pages}")
+    mk = lambda Sq: build_mixed_step(  # noqa: E731
+        eng.cfg, (1, eng.G), spec, cc, B, Sq=Sq, return_logits=True,
+        device=dev)
+    pre, dec = mk(chunk), mk(dec_sq)
+    pack, kv = ex._assemble_pack(spec), torch.zeros_like(ex.kv_flat)
+    bt = np.zeros((1, B, maxp), np.int32)
+    for i in range(n):
+        k = i % bs
+        bt[0, i, :per] = np.arange(1 + k * per, 1 + (k + 1) * per)
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    V = eng.cfg.vocab_size
+    out = {r.rid: [] for r in reqs}
+
+    def note(lg, rows):
+        lg = lg[0, :, :V].float()
+        check(bool(torch.isfinite(lg[rows]).all()),
+              "teacher forcing: non-finite logits")
+        top2 = lg.topk(2)
+        big = lg.abs().amax(dim=-1)
+        for i in rows:
+            rid = reqs[i].rid
+            if ids is None:
+                a, b = top2.indices[i].tolist()
+                out[rid].append((float(top2.values[i, 0]
+                                       - top2.values[i, 1]),
+                                 float(big[i]), (a, b)))
+            else:
+                a, b = ids[rid][len(out[rid])][2]
+                out[rid].append(float(lg[i, a] - lg[i, b]))
+
+    plen = [len(r.prompt) for r in reqs]
+    starts = [0] * bool(lead) + list(range(lead, max(plen), chunk))
+    for s, e in zip(starts, starts[1:] + [max(plen)]):
+        toks = np.zeros((1, B, chunk), np.int32)
+        vl = np.zeros((1, B), np.int32)
+        for i, r in enumerate(reqs):
+            k = max(0, min(e, plen[i]) - s)
+            toks[0, i, :k] = r.prompt[s:s + k]
+            vl[0, i] = k
+        _, kv, lg = pre(pack, kv, T(toks), T(np.full((1, B), s, np.int32)),
+                        T(vl), T(bt))
+        note(lg, [i for i in range(n) if s < plen[i] <= e])
+    for j in range(max(map(len, outs.values())) - 1):
+        toks = np.zeros((1, B, dec_sq), np.int32)
+        pos = np.zeros((1, B), np.int32)
+        vl = np.zeros((1, B), np.int32)
+        rows = [i for i, r in enumerate(reqs) if j + 1 < len(outs[r.rid])]
+        for i in rows:
+            toks[0, i, 0] = outs[reqs[i].rid][j]
+            pos[0, i] = plen[i] + j
+            vl[0, i] = 1
+        _, kv, lg = dec(pack, kv, T(toks), T(pos), T(vl), T(bt))
+        note(lg, rows)
+    return out
+
+
+MARGIN_HEADROOM = 3.0       # x the noise measured at the same position
+
+
+def stream_margins(eng, reqs, streams: dict, to_ep) -> dict:
+    """what -> rid -> [(argmax, margin, tolerance)] at every token of that
+    run's own output stream, teacher-forced on the engine's pack in tp with
+    its prefill chunk. A margin's noise is its largest change at the same
+    position, between the same two ids, over equivalent bf16 paths that
+    change what sets the rounding (the GEMMs' row count, the layout; the
+    chunk boundaries alone change nothing): tp with prompt chunks of 32,
+    tp with each decode row inside a step as wide as a prefill chunk (as
+    the engine's mixed steps carry it), then (after `to_ep()` has switched
+    the engine) ep with both the chunk and the wide decode rows. Its
+    tolerance is the larger of the serve phase's (BF16_TOL x the largest
+    |logit|) and MARGIN_HEADROOM x that noise: a margin is clear above it.
+    The variants and the headroom come from a measurement on six engine
+    streams of this trace (ROADMAP C13)."""
+    chunk = eng.ex.prefill_chunk
+    base = {w: teacher_forced(eng, reqs, s, chunk)
+            for w, s in streams.items()}
+    paths = (dict(chunk=chunk, dec_sq=chunk), dict(chunk=32))
+    alts = {w: [teacher_forced(eng, reqs, s, ids=base[w], **k)
+                for k in paths] for w, s in streams.items()}
+    to_ep()
+    for w, s in streams.items():
+        alts[w] += [teacher_forced(eng, reqs, s, ids=base[w], **k)
+                    for k in (dict(chunk=chunk), paths[0])]
+    return {w: {rid: [(ids[0], m, max(BF16_TOL * big, MARGIN_HEADROOM * max(
+        abs(m - a[rid][j]) for a in alts[w])))
+        for j, (m, big, ids) in enumerate(v)] for rid, v in tf.items()}
+        for w, tf in base.items()}
+
+
+def greedy_agree(got: dict, ref: dict, margins: dict, what: str) -> tuple:
+    """Tokens equal the reference's wherever its margin is clear: a request
+    is compared position by position until its first difference, which
+    must sit at an unclear margin (after it the two streams condition on
+    different tokens). Returns (positions compared equal, positions the
+    margin excluded, the first differences as (rid, position))."""
+    same = excluded = 0
+    parts = []
+    check(set(got) == set(ref), f"{what}: finished {sorted(got)}")
+    for rid, want in ref.items():
+        g = got[rid]
+        check(len(g) == len(want), f"{what}: request {rid} length {len(g)}")
+        for j, (a, b) in enumerate(zip(g, want)):
+            if a == b:
+                same += 1
+                continue
+            _, m, tol = margins[rid][j]
+            check(m <= tol, f"{what}: request {rid} token {j} is {a}, the "
+                            f"reference's {b}, at a clear margin {m:.4f} > "
+                            f"{tol:.4f}")
+            excluded += len(want) - j
+            parts.append((rid, j))
+            break
+    return same, excluded, parts
+
+
+def own_stream(got: dict, margins: dict, what: str) -> list:
+    """Every token of a run equals the teacher-forced argmax along the
+    run's own stream wherever that margin is clear, at every position.
+    Returns the positions that differ, as (rid, position)."""
+    parts = []
+    for rid, toks in got.items():
+        for j, t in enumerate(toks):
+            a, m, tol = margins[rid][j]
+            if t == a:
+                continue
+            check(m <= tol, f"{what}: request {rid} token {j} is {t}, the "
+                            f"teacher-forced argmax {a}, at a clear margin "
+                            f"{m:.4f} > {tol:.4f}")
+            parts.append((rid, j))
+    return parts
+
+
+def shared_pages(eng) -> int:
+    """Pages held by more than one owner (requests and cache entries)."""
+    return sum(1 for a in eng.alloc for refs in a.refs
+               for n in refs.values() if n > 1)
+
+
+def cow_timing(eng) -> None:
+    """Time one CoW fork (one page, every layer's K and V, each rank's
+    slice in the pooled view) on the engine's KV buffer, which holds no
+    request now: the mover against its plain version and the bytes bound,
+    with the mover's device time and host time per call."""
+    import torch
+
+    from repro_torch.kernels.kv_pack.ref import (gather_pages_rows_ref,
+                                                 scatter_pages_rows_ref)
+    from repro_torch.serving.kvcache import copy_pages
+    cfg, cc, spec = eng.cfg, eng.cc, eng.active
+    kv = eng.kv_flat[0]
+    Lk, two, pages, page, K, dh = cc.view_shape(cfg, eng.G, spec)
+    rows = (kv[0].view(1, Lk * two, pages, page * K * dh) if spec.kv_per_rank
+            else kv.view(eng.G, Lk * two, pages, page * K * dh))
+    src = torch.tensor([1], dtype=torch.int32, device=kv.device)
+    dst = torch.tensor([2], dtype=torch.int32, device=kv.device)
+
+    def mover():
+        copy_pages(kv, cfg, cc, spec, 0, [(1, 2)])
+
+    def plain():
+        scatter_pages_rows_ref(rows, dst, gather_pages_rows_ref(rows, src))
+
+    ms, plain_ms = cuda_ms(mover), cuda_ms(plain)
+    dev_ms, host_us = split_times(mover)
+    nbytes = 2 * rows[:, :, :1].numel() * rows.element_size()
+    b_ms, _ = bound(nbytes, 0, cfg.param_dtype)
+    print(f"prefix: one CoW fork in {spec} ({rows.shape[0]} rank(s) x "
+          f"{Lk * two} K/V rows x 1 page of {rows.shape[-1]} elements, "
+          f"{nbytes} bytes read and written): mover {ms:.4f} ms per call "
+          f"(device {dev_ms:.4f} ms incl. the index upload, host "
+          f"{host_us:.2f} us), plain version {plain_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms", flush=True)
+
+
+def cow_check(eng) -> None:
+    """The CoW mover at the main path's full-width shapes, bit-equal to
+    the plain gather and scatter on the same pairs: clones of one data
+    group's KV buffer filled with random bf16, in the tp view (one index
+    shared over the ranks) and in the ep view on either rank, with one pair
+    (a fork) and with seven (two from one source). Each call must launch
+    both kv_pack kernels once and change the buffer."""
+    import torch
+
+    from repro_torch.core.layouts import get_layout
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.kv_pack.ref import (gather_pages_rows_ref,
+                                                 scatter_pages_rows_ref)
+    from repro_torch.serving.kvcache import copy_pages
+    cfg, cc, G = eng.cfg, eng.cc, eng.G
+    gen = torch.Generator().manual_seed(SEED + 18)
+    base = torch.randn(eng.kv_flat[0].shape, generator=gen).to(
+        device=eng.device, dtype=eng.kv_flat.dtype)
+    n = 0
+    for layout in ("tp", "ep"):
+        spec = get_layout(layout)
+        Lk, two, pages, page, K, dh = cc.view_shape(cfg, G, spec)
+        p = (torch.randperm(pages - 1, generator=gen) + 1).tolist()
+        for pairs in ([(p[0], p[1])],
+                      list(zip(p[:6] + p[:1], p[6:13]))):
+            for pool in (range(G) if spec.kv_per_rank else (0,)):
+                got, want = base.clone(), base.clone()
+                c0 = {op: dispatch.calls(op) for op in KV_ROWS}
+                copy_pages(got, cfg, cc, spec, pool, pairs)
+                check(all(dispatch.calls(op) == c0[op] + 1 for op in KV_ROWS),
+                      f"prefix: the CoW mover in {layout} did not launch "
+                      f"the kv_pack kernels")
+                rows = (want[pool].view(1, Lk * two, pages, page * K * dh)
+                        if spec.kv_per_rank
+                        else want.view(G, Lk * two, pages, page * K * dh))
+                idx = torch.tensor(pairs, dtype=torch.int32,
+                                   device=eng.device).T
+                scatter_pages_rows_ref(rows, idx[1],
+                                       gather_pages_rows_ref(rows, idx[0]))
+                check(not torch_equal(want, base), "prefix: the plain CoW "
+                                                   "copy moved nothing")
+                check(torch_equal(got, want),
+                      f"prefix: the CoW mover in {layout} (rank {pool}, "
+                      f"{len(pairs)} pairs) differs from its plain version")
+                n += 1
+    print(f"prefix: the CoW mover at full width bit-equal to its plain "
+          f"version in {n} cases (tp view with one index over both ranks, ep "
+          f"view on either rank; 1 and 7 pairs)", flush=True)
+
+
+def phase_prefix_small() -> None:
+    """The parity phase's small f32 model on shared prefixes: the cache on
+    against off, and switched (tp->ep monolithic, ep->tp chunked, fused
+    loop of 4, graphs) against never switched, byte-identical."""
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.kvcache import CacheConfig
+
+    cfg = parity_model()
+    cc = CacheConfig(page_size=16, pages_ep=32, max_pages_per_req=8)
+    params = init_params(cfg, SEED, device="cuda")
+
+    def run(switches=(), **kw):
+        eng = MoebiusEngine(cfg, (1, 2), cc, params_global=params,
+                            ecfg=EngineConfig(ladder=(4, 8), prefill_chunk=32,
+                                              policy=static_policy(), **kw))
+
+        def switch(tgt, chunk):
+            check(shared_pages(eng) > 0, "prefix small: no shared page live "
+                                         "at the switch")
+            eng.ecfg.chunk_layers = chunk
+            check(eng.execute_switch(tgt), f"prefix small: ->{tgt} aborted")
+            for a in eng.alloc:
+                a.check()
+
+        hooks = {at: (lambda t=t, c=c: switch(t, c))
+                 for at, t, c in switches}
+        reqs = prefix_trace(cfg.vocab_size, groups=3, size=3, head=40,
+                            suffix=(3, 13), new=12, seed=SEED + 17)
+        out, _, _ = serve_trace(eng, reqs, hooks)
+        return eng, out
+
+    _, base = run(prefix_cache=False, graphs=False)
+    on, out = run(decode_steps=4)
+    check(out == base, "prefix small: cache on != cache off")
+    check(on.metrics.prefix_hits > 0 and on.metrics.cow_forks > 0,
+          f"prefix small: hits {on.metrics.prefix_hits} forks "
+          f"{on.metrics.cow_forks}")
+    sw, out = run(((3, "ep", 0), (7, "tp", 1)), decode_steps=4)
+    check(out == base, "prefix small: switched != never switched")
+    check([r.direction for r in sw.switch_records] == ["tp_to_ep", "ep_to_tp"],
+          "prefix small: switches")
+    print(f"prefix small: f32, 9 requests in 3 shared-prefix groups; cache on"
+          f" ({on.metrics.prefix_hits} hits, {on.metrics.cow_forks} CoW "
+          f"forks) and switched tp->ep->tp ({sw.metrics.prefix_hits} hits) "
+          f"byte-identical to cache off", flush=True)
+
+
+def phase_prefix(results: dict) -> None:
+    """repro's default engine (`EngineConfig()`: prefix cache, QoS, mixed
+    batch) on a shared-prefix trace at full width, from graphs (fused loop
+    of 8), through a monolithic tp->ep switch with shared pages live, a
+    scripted ep->tp chunked switch that a chunk_fail aborts and a second
+    one that commits; against the same trace served eager, cache off and
+    never switched (the reference), eager with the cache on, and two-phase
+    (`mixed_batch=False`) from graphs."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.moe import (make_expert_layout, pack_experts,
+                                        pack_w13, unpack_experts, unpack_w13)
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.faults import Fault, FaultPlan
+
+    phase_prefix_small()
+    cfg, cc = serve_model()
+    L, E = cfg.num_layers, cfg.num_experts
+    trace = lambda: prefix_trace(cfg.vocab_size)  # noqa: E731
+    n_req = len(trace())
+    prompt_toks = sum(len(r.prompt) for r in trace())
+    params = init_params(cfg, SEED, device="cuda")
+
+    def engine(**kw):
+        kw = {"prefill_chunk": 128, "seed": SEED,
+              "policy": static_policy(), **kw}
+        return MoebiusEngine(cfg, (1, 2), cc, params_global=params,
+                             ecfg=EngineConfig(**kw))
+
+    def launches(eng, tally, what):
+        n = {k: dispatch.calls(k) for k in ("paged_attention",
+                                            "grouped_matmul")
+             + SWITCH_KERNELS}
+        check(all(tally[op] > 0 for op in KV_ROWS),
+              f"{what}: CoW copies launched {tally}")
+        for k, v in n.items():
+            results["launches"][k] = results["launches"].get(k, 0) + v
+        return n
+
+    runs, outs, hits = {}, {}, {}
+    # the reference: eager, cache off, never switched
+    ref_eng = engine(prefix_cache=False, graphs=False)
+    dispatch.reset_counts()
+    ref, wall, _ = serve_trace(ref_eng, trace())
+    launches_ref = {k: dispatch.calls(k) for k in KV_ROWS}
+    check(launches_ref == {op: 0 for op in KV_ROWS},
+          f"prefix: the cache-off run copied pages {launches_ref}")
+    runs["eager, cache off"] = (ref_eng.metrics, wall)
+    outs["eager, cache off"], hits["eager, cache off"] = ref, set()
+    del ref_eng
+    gc.collect()
+
+    def serve_checked(what, eng, hooks=None, untimed=()):
+        """Serve the trace and check it; `untimed` holds seconds the
+        run spent in this script's own checks, left out of its tok/s. The
+        tokens are checked at the end of the phase."""
+        tally, hits[what] = count_cow(eng), note_hits(eng)
+        dispatch.reset_counts()
+        out, wall, _ = serve_trace(eng, trace(), hooks)
+        wall -= sum(untimed)
+        m = eng.metrics
+        check(m.prefix_hits > 0 and m.cow_forks > 0,
+              f"{what}: hits {m.prefix_hits} forks {m.cow_forks}")
+        check(len(hits[what]) == m.prefix_hits,
+              f"{what}: {len(hits[what])} followers for {m.prefix_hits} hits")
+        check(m.prefill_tokens < runs["eager, cache off"][0].prefill_tokens,
+              f"{what}: prefilled {m.prefill_tokens} tokens")
+        check(eng.ex.rt.late_builds == 0,
+              f"{what}: {eng.ex.rt.late_builds} captures after warmup")
+        for a in eng.alloc:
+            a.check()
+        n = launches(eng, tally, what)
+        eng.clear_prefix_cache()
+        for a in eng.alloc:
+            a.check()
+            check(a.total_held() == 0, f"{what}: {a.total_held()} pages "
+                                       f"held after clear_prefix_cache()")
+        runs[what], outs[what] = (m, wall), out
+        print(f"prefix {what}: {sum(map(len, out.values()))} tokens in "
+              f"{wall:.3f} s -> {sum(map(len, out.values())) / wall:.2f} "
+              f"tok/s; prefix hits {m.prefix_hits}/{m.prefix_lookups}, "
+              f"{m.prefix_tokens_saved} prompt tokens saved, prefilled "
+              f"{m.prefill_tokens} of {prompt_toks}, {m.cow_forks} CoW forks "
+              f"launching {tally}, switch and other kv_pack launches "
+              f"{ {op: n[op] - tally[op] for op in KV_ROWS} }; "
+              f"{m.dispatches} dispatches ({m.mixed_dispatches} mixed)",
+              flush=True)
+
+    serve_checked("eager, cache on", engine(graphs=False))
+    gc.collect()
+    two = engine(mixed_batch=False, decode_steps=8)
+    two.warmup()
+    serve_checked("two-phase, graphs N=8", two)
+    check(two.metrics.mixed_dispatches == 0, "two-phase: a mixed dispatch")
+    del two
+    gc.collect()
+
+    # the main run: repro's defaults, graphs, fused 8, switches and faults
+    plan = FaultPlan((Fault("switch", at_step=PREFIX_FAIL_AT, target="tp"),
+                      Fault("chunk_fail", switch_chunk=1),
+                      Fault("switch", at_step=PREFIX_RETRY_AT, target="tp")))
+    eng = engine(decode_steps=8, chunk_layers=1, faults=plan)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    eng.warmup()
+    t_warm = time.time() - t0
+    host = {k: v.to("cpu", copy=True) for k, v in eng.ex._experts.items()}
+    lay_tp, lay_ep = (make_expert_layout(E, 2, k) for k in ("tp", "ep"))
+
+    def store_is(layout: str) -> bool:
+        for li in range(L):
+            for k in ("w13", "w2"):
+                w = host[k][li].cuda()
+                if layout == "ep":
+                    w = (pack_w13(unpack_w13(w, lay_tp, E), lay_ep)
+                         if k == "w13" else pack_experts(
+                             unpack_experts(w, lay_tp, 2, E), lay_ep, 2))
+                if not torch_equal(eng.ex._experts[k][li], w):
+                    return False
+        return True
+
+    plain = eng.execute_switch
+    log, untimed = [], []
+
+    def switch(target):
+        # the drain is the engine's own work before a switch: timed
+        eng.ex.drain_decode()
+        t0 = time.time()
+        live = shared_pages(eng)
+        check(live > 0, f"prefix: no shared page live at the ->{target} "
+                        f"switch")
+        snap, src = kv_written(eng), str(eng.active)
+        bank, kv_ptr = eng.ex._bank, eng.kv_flat.data_ptr()
+        ptrs = [v.data_ptr() for v in eng.ex._experts.values()]
+        aborts = len(eng.metrics.switch_abort_events)
+        t1 = time.time()
+        ok = plain(target)
+        t2 = time.time()
+        for a in eng.alloc:
+            a.check()
+        # a chunked switch decodes between its chunks: a request may finish
+        # inside it, and is compared only if it lives on
+        n = check_kv_moved(snap, kv_written(eng), f"prefix {src}->{target}",
+                           require=eng.ecfg.chunk_layers == 0)
+        if ok:
+            rec = eng.switch_records[-1]
+            check(store_is(target), f"prefix {rec.direction}: store differs")
+            log.append((rec.direction, rec.chunks, rec.pause_s, rec.total_s,
+                        rec.kv_pages, n, live))
+            untimed.append(time.time() - t2 + t1 - t0)
+            return ok
+        check(str(eng.active) == src and eng.ex._bank == bank
+              and eng.kv_flat.data_ptr() == kv_ptr
+              and ptrs == [v.data_ptr() for v in eng.ex._experts.values()],
+              "prefix: the aborted switch moved the live layout or bank")
+        check(len(eng.metrics.switch_abort_events) == aborts + 1,
+              "prefix: the abort was not recorded")
+        check(store_is(src), "prefix: the store changed under the abort")
+        log.append((f"{src}->{target} aborted", 0, 0.0, 0.0, 0, n, live))
+        untimed.append(time.time() - t2 + t1 - t0)
+        return ok
+
+    eng.execute_switch = switch
+
+    def mono():
+        eng.ecfg.chunk_layers = 0
+        switch("ep")
+        eng.ecfg.chunk_layers = 1
+
+    serve_checked("graphs N=8, switched", eng, {PREFIX_MONO_AT: mono}, untimed)
+    check([x[0] for x in log] == ["tp_to_ep", "ep->tp aborted", "ep_to_tp"],
+          f"prefix: switch log {[x[0] for x in log]}")
+    check(len(eng.metrics.switch_abort_events) == 1 and eng._faults.done,
+          "prefix: the fault plan did not run through")
+    check(eng.metrics.faults_injected == 3, "prefix: faults injected "
+                                            f"{eng.metrics.faults_injected}")
+    for d, chunks, pause, total, kv_pages, n, live in log:
+        print(f"prefix switch {d}: chunks={chunks} pause_s={pause:.4f} "
+              f"total_s={total:.4f} kv_pages={kv_pages}; {live} shared pages "
+              f"live, K/V of {n} requests byte-equal, store byte-exact",
+              flush=True)
+    print(f"prefix: warmup {t_warm:.2f} s; {n_req} requests of "
+          f"{prompt_toks} prompt tokens", flush=True)
+    cow_check(eng)
+    cow_timing(eng)
+
+    def to_ep():
+        eng.ecfg.chunk_layers = 0
+        check(plain("ep") and store_is("ep"), "prefix: the idle tp->ep "
+                                              "switch")
+
+    t0 = time.time()
+    margins = stream_margins(eng, trace(), outs, to_ep)
+    print(f"prefix: every run's stream teacher-forced in tp (prompt chunks "
+          f"of 128 and 32, decode rows 1 and 128 wide) and in ep (chunks of "
+          f"128, decode rows 1 and 128 wide) in {time.time() - t0:.1f} s; a "
+          f"margin is clear above max(BF16_TOL x max|logit|, "
+          f"{MARGIN_HEADROOM} x its largest change at that position)",
+          flush=True)
+    off = runs["eager, cache off"][0].prefill_tokens
+    for what, (m, wall) in runs.items():
+        got, f = outs[what], hits[what]
+        same, excl, first = greedy_agree(got, ref, margins["eager, cache off"],
+                                         what)
+        own = own_stream(got, margins[what], what)
+        print(f"prefix {what}: {sum(map(len, got.values())) / wall:.2f} "
+              f"tok/s, prefilled {m.prefill_tokens} tokens = "
+              f"{1 - m.prefill_tokens / off:.1%} fewer than cache off; "
+              f"against the reference {same} positions equal, {excl} "
+              f"excluded after {len(first)} first differences at unclear "
+              f"margins ({sum(j == 0 and r in f for r, j in first)} on a "
+              f"follower's first token, "
+              f"{sum(j == 1 for r, j in first if f)} on the first token "
+              f"through a forked tail); along its own stream "
+              f"{sum(map(len, got.values())) - len(own)} of "
+              f"{sum(map(len, got.values()))} positions equal the "
+              f"teacher-forced argmax, {len(own)} differ at unclear margins "
+              f"({sum(j == 0 and r in f for r, j in own)} on a follower's "
+              f"first token, {sum(j == 1 for r, j in own if f)} on the first "
+              f"token through a forked tail)", flush=True)
     del eng, host
     gc.collect()
     torch.cuda.empty_cache()
@@ -1720,7 +2332,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}; {card_line()}", flush=True)
 
     from repro_torch.kernels import build
-    t0 = time.time()
+    t_start = t0 = time.time()
     logs = build.build_all(["paged_attention", "moe_gemm", "kv_pack",
                             "expert_reshard"])
     print(f"build: {time.time() - t0:.2f} s", flush=True)
@@ -1737,12 +2349,17 @@ def main() -> int:
               ("switch", lambda: phase_switch(results)),
               ("switch_kernels", lambda: phase_switch_kernels(results)),
               ("graphs", lambda: phase_graphs(results)),
-              ("policy", lambda: phase_policy(results))]
+              ("policy", lambda: phase_policy(results)),
+              ("prefix", lambda: phase_prefix(results))]
     results: dict = {"launches": {}}
     t_run = time.time()
     for name, fn in phases:
         t0 = time.time()
         fn()
+        # a phase's engine may sit in a reference cycle (a wrapped
+        # execute_switch): free it before the next phase allocates
+        gc.collect()
+        torch.cuda.empty_cache()
         print(f"phase {name}: {time.time() - t0:.1f} s (run so far "
               f"{time.time() - t_run:.1f} s)", flush=True)
 
@@ -1760,6 +2377,8 @@ def main() -> int:
         rows.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    print(f"chip_smoke: {time.time() - t_start:.1f} s in all, the build "
+          f"included", flush=True)
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

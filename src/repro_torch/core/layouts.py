@@ -60,6 +60,11 @@ class LayoutSpec(str):
         """True when each rank owns a private page pool (EP view)."""
         return self.kv_view == "ep"
 
+    def prefill_width(self, G: int) -> int:
+        """Prefill batch-slot rows per data group: rank-sharded layouts run
+        one request per model rank; replicated layouts run one per group."""
+        return G if self.slots_sharded else 1
+
     def batch_quantum(self, G: int) -> int:
         return G if (self.slots_sharded or self.expert_full_mesh) else 1
 

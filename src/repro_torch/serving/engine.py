@@ -6,7 +6,9 @@ device `Executor` and keeps the synchronous `submit()`/`step()`/`run()`
 API: admission -> policy -> (switch?) -> ONE token-budgeted mixed
 dispatch per iteration (decode rows first, prefill chunks into the
 remaining budget; DESIGN.md §10), or, with `decode_steps > 1` and no
-prefill in flight, one fused N-step decode dispatch. The
+prefill in flight, one fused N-step decode dispatch.
+`EngineConfig.mixed_batch = False` runs the two-phase prefill-then-decode
+iteration instead: same plans and step functions, the same outputs. The
 `SwitchCoordinator` observes the Scheduler's queue snapshot once per
 iteration and decides the switches; `execute_switch(target)` also
 switches on request. A switch runs between iterations without draining
@@ -21,13 +23,19 @@ policy now prefers the source layout (mid-switch reversal).
 on a card, core/residency.py); the switches land at the addresses they
 were captured against, so serving and switching capture nothing more.
 
-Not in this slice, and therefore not fields of `EngineConfig` (an unknown
-keyword raises, so none is silently ignored): the fault injector and
-fault polling (also inside the chunked switch), cross-world switches, the
-two-phase iteration (`mixed_batch=False`), the prefix cache and QoS. The
-policy is fed no SLO attainment (`attainment=None`: QoS is not ported).
-repro turns the prefix cache and QoS on by default; outputs match it with
-`prefix_cache=False` (greedy outputs do not depend on QoS with one class).
+`EngineConfig()` carries repro's defaults: the prefix cache shares
+page-aligned prompt prefixes across requests (refcounted pages, the
+shared tail forked copy-on-write by the kv_pack kernels before an
+append; DESIGN.md §6), QoS schedules by SLO class and feeds the policy
+the interactive class's attainment (DESIGN.md §11), and a scripted
+`FaultPlan` is polled at the top of every iteration and at every chunk
+boundary of a chunked switch (DESIGN.md §12). Switches carry the live
+prefix caches across and take the remapped ones back.
+
+Not in this slice: `rank_fail` faults (a plan holding one raises
+`NotImplementedError`: they need elastic world size and degraded mode),
+cross-world (`@world`) and full-mesh (`tpep`) layouts, the streaming
+frontend and the HTTP server.
 """
 from __future__ import annotations
 
@@ -39,8 +47,11 @@ from repro_torch.core.policy import PolicyConfig, SwitchCoordinator
 from repro_torch.kernels.dispatch import require_device
 from repro_torch.models.common import ModelConfig
 from repro_torch.serving.executor import Executor
+from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.kvcache import CacheConfig, PageAllocator
 from repro_torch.serving.metrics import ServeMetrics
+from repro_torch.serving.paging import PrefixCache
+from repro_torch.serving.qos import QosPolicy, slo_targets
 from repro_torch.serving.request import Request
 from repro_torch.serving.scheduler import Scheduler
 
@@ -52,8 +63,13 @@ class EngineConfig:
     # (their control-plane packs are all built; the experts exist once)
     layouts: tuple = (TP, EP)
     ladder: tuple = (4, 8, 16, 32)
-    # prefill chunk width, also the per-iteration mixed-batch token budget
     prefill_chunk: int = 32
+    # ONE dispatch per iteration mixing decode rows with prefill chunks
+    # under `token_budget` (DESIGN.md §10). False = the legacy two-phase
+    # prefill-then-decode iteration (same step fns; byte-identical outputs)
+    mixed_batch: bool = True
+    # per-iteration mixed-batch token budget; 0 = auto: the prefill chunk
+    token_budget: int = 0
     # virtual-clock seconds charged per device step dispatch (0 = off).
     # Only meaningful with an injected clock
     dispatch_dt: float = 0.0
@@ -73,6 +89,10 @@ class EngineConfig:
     # consumed one engine iteration late, and the engine drains to a step
     # boundary before any switch. N == 1 keeps the per-token host loop.
     decode_steps: int = 1
+    # share page-aligned prompt prefixes across requests (refcounted pages
+    # + CoW; DESIGN.md §6). Greedy outputs are byte-identical with the
+    # cache on or off — it only removes redundant prefill compute/bytes.
+    prefix_cache: bool = True
     # trace-replay idle fast-forward: with nothing live and every pending
     # request in the future, jump the clock to the next arrival
     idle_skip: bool = True
@@ -80,6 +100,17 @@ class EngineConfig:
     # time_scale. A VirtualClock (serving/frontend.py) makes the loop
     # deterministic; `idle_skip` then advances it directly.
     clock: object = None
+    # multi-tenant QoS (DESIGN.md §11): class-aware admission / victim /
+    # budget-share scheduling plus the interactive-attainment switch gate.
+    # Safe to leave on: with a single-class trace every QoS hook
+    # degenerates to the class-blind rule (byte-identical outputs).
+    qos: bool = True
+    # deterministic fault injection (DESIGN.md §12): a FaultPlan /
+    # FaultInjector / iterable of Faults scripted against the virtual
+    # clock. None = no chaos. The engine polls it at the top of every
+    # iteration and at every chunk boundary of a chunked switch.
+    # `rank_fail` is not ported: a plan holding one raises.
+    faults: object = None
     policy: PolicyConfig = field(default_factory=PolicyConfig)
     seed: int = 0
 
@@ -131,14 +162,31 @@ class MoebiusEngine:
         self._clock = self.ecfg.clock
         self._clock_skip = 0.0
         self._charged_disp = 0         # dispatches already billed dispatch_dt
+        # fault injection (DESIGN.md §12)
+        self._faults = (None if self.ecfg.faults is None
+                        else FaultInjector(self.ecfg.faults))
+        if self._faults is not None and any(
+                f.kind == "rank_fail" for f in self._faults.plan):
+            raise NotImplementedError(
+                "rank_fail faults need elastic world size and degraded "
+                "mode, which are not ported yet")
+        self._holds: list = []         # live pool_exhaust page seizures
         self.ex = Executor(cfg, mesh, cc, self.ecfg, self.layouts, start,
                            params_global=params_global, metrics=self.metrics,
                            device=self.device)
         alloc = [PageAllocator(cc, cfg, self.G, start)
                  for _ in range(self.Dd)]
+        # prefix cache: one index per data group over that group's allocator
+        prefix = ([PrefixCache(alloc[d]) for d in range(self.Dd)]
+                  if self.ecfg.prefix_cache else None)
+        qos = QosPolicy() if self.ecfg.qos else None
+        if qos is not None:
+            # per-class attainment needs the class targets installed
+            self.metrics.slo_targets = slo_targets()
         self.sched = Scheduler(cc, self.Dd, self.G, self.ex.ladder,
-                               alloc=alloc, prefix=None, spec=start,
-                               clock=self.now, metrics=self.metrics)
+                               alloc=alloc, prefix=prefix, spec=start,
+                               clock=self.now, metrics=self.metrics,
+                               qos=qos)
         self.sched.set_layout(start)
         self.sched.clear_slot = self.ex.clear_slot
         self.ex.on_finish = self.sched.finish_request
@@ -186,11 +234,9 @@ class MoebiusEngine:
         dt = self.ecfg.dispatch_dt
         if dt <= 0 or self._clock is None:
             return
-        adv = getattr(self._clock, "advance", None)
         delta = self.metrics.dispatches - self._charged_disp
         self._charged_disp = self.metrics.dispatches
-        if adv is not None and delta > 0:
-            adv(delta * dt)
+        self._advance_clock(delta * dt)
 
     # ------------------------------------------------------------------
     # delegating surface
@@ -224,6 +270,10 @@ class MoebiusEngine:
         return self.sched.alloc
 
     @property
+    def prefix(self):
+        return self.sched.prefix
+
+    @property
     def kv_flat(self):
         return self.ex.kv_flat
 
@@ -243,6 +293,12 @@ class MoebiusEngine:
     def prefill_chunk(self) -> int:
         return self.ex.prefill_chunk
 
+    @property
+    def token_budget(self) -> int:
+        """Per-iteration mixed-batch token budget (0 in the config = auto:
+        the prefill chunk)."""
+        return self.ecfg.token_budget or self.ex.prefill_chunk
+
     def submit(self, req: Request) -> None:
         self.sched.submit(req)
 
@@ -251,16 +307,37 @@ class MoebiusEngine:
         executor's `warmup`); nothing is captured while serving after."""
         self.ex.warmup()
 
+    def requeue_for_reprefill(self, r: Request) -> None:
+        self.sched.requeue_for_reprefill(r)
+
+    def clear_prefix_cache(self) -> None:
+        self.sched.clear_prefix_cache()
+
+    def _drain_decode(self) -> None:
+        self.ex.drain_decode()
+
     # ------------------------------------------------------------------
-    # decode-only and mixed steps (Scheduler plans, Executor dispatches)
+    # prefill / decode phases (Scheduler plans, Executor dispatches)
     # ------------------------------------------------------------------
+    def _run_prefill(self) -> None:
+        # CoW copies from prefill admission must land before anything can
+        # write the source pages — flush even when no row dispatches
+        self.ex.run_copies(self.sched.drain_copies())
+        if not self.sched.prefilling:
+            return
+        picked = self.sched.select_prefill_rows(self.ex.prefill_chunk)
+        if not picked:
+            return
+        nxt = self.ex.run_prefill(picked, self._step_i)
+        t = self.now()
+        for r, d, row, n in picked:
+            self.sched.finish_prefill(r, n, int(nxt[d, row]), t)
+
     def _decode_once(self) -> None:
         if not self.sched.running:
             return
         B, stepped = self.sched.plan_decode(self._step_i)
-        copies = self.sched.drain_copies()
-        if copies:      # only the prefix cache forks pages
-            raise RuntimeError(f"unexpected page copies {copies}")
+        self.ex.run_copies(self.sched.drain_copies())
         if not stepped:
             return
         toks = self.ex.run_decode(B, stepped, self._step_i)
@@ -286,12 +363,11 @@ class MoebiusEngine:
             # boundary and run single-token mixed dispatches until the
             # storm passes (runners re-join the fused loop afterwards)
             self.ex.suspend_fused(self.sched)
-        plan = self.sched.plan_mixed(self._step_i,
-                                     budget=self.ex.prefill_chunk,
+        plan = self.sched.plan_mixed(self._step_i, budget=self.token_budget,
                                      chunk=self.ex.prefill_chunk)
-        copies = self.sched.drain_copies()
-        if copies:      # only the prefix cache forks pages
-            raise RuntimeError(f"unexpected page copies {copies}")
+        # CoW copies from BOTH prefill admission and the plan's page growth
+        # must land before the dispatch that could write their source pages
+        self.ex.run_copies(self.sched.drain_copies())
         if plan.rows:
             nxt = self.ex.run_mixed(plan, self._step_i)
             self.sched.commit_mixed(plan, nxt, self.now())
@@ -310,10 +386,11 @@ class MoebiusEngine:
         Chunked mode stages the destination buffers layer chunk by layer
         chunk with decode steps interleaved (still on the intact source
         layout), then pauses only for the dirty-page delta + commit
-        (DESIGN.md §4.3); it aborts at a chunk boundary when the policy
-        reverses (the scorer now prefers the source), and then returns
-        False with the source layout live. True when the switch
-        committed."""
+        (DESIGN.md §4.3); it aborts at a chunk boundary on a scripted
+        `chunk_fail` or when the policy reverses (the scorer now prefers
+        the source), and then returns False with the source layout live.
+        True when the switch committed. The live prefix caches are
+        remapped with the pages they index."""
         target = get_layout(target)
         if target is self.active:
             raise ValueError(f"switch target {target!r} is the active layout")
@@ -326,9 +403,10 @@ class MoebiusEngine:
             if rec is None:                # aborted; source layout live
                 return False
         else:
-            alloc, _, st = self.ex.switch_monolithic(
-                target, self.sched.live(), self.sched.alloc)
-            self.sched.alloc = alloc
+            alloc, caches, st = self.ex.switch_monolithic(
+                target, self.sched.live(), self.sched.alloc,
+                self.sched.prefix)
+            self.sched.alloc, self.sched.prefix = alloc, caches
             self.sched.set_layout(target)
             rec = SwitchRecord(
                 t=self.now(), direction=st.direction, total_s=st.total_s,
@@ -348,28 +426,53 @@ class MoebiusEngine:
         step on the source layout, repeat; then commit. Request metadata
         changes only at commit, so the overlap steps keep the old pages,
         owners and allocator. Returns its SwitchRecord, or None when the
-        policy reversed at a chunk boundary and the attempt was
-        abandoned."""
+        attempt was abandoned at a chunk boundary (a scripted chunk_fail
+        or a policy reversal; the abort already recorded its metrics and
+        backoff)."""
+        inj = self._faults
+        if inj is not None:
+            inj.begin_switch()
         cap_ep = self.cc.capacity_tokens(self.cfg, self.G, EP)
         sess = self.ex.switch_start(target, self.sched.live(),
-                                    self.ecfg.chunk_layers, self.sched.alloc)
+                                    self.ecfg.chunk_layers, self.sched.alloc,
+                                    self.sched.prefix)
+        abort_reason = None
         while not sess.done:
             self.ex.switch_advance()
             self._step_i += 1
             self._decode_step()
+            boundary = sess.next_chunk - 1
+            if inj is not None:
+                for f in inj.poll_switch(boundary):
+                    if f.kind == "chunk_slow":
+                        # straggler chunk: charge the virtual clock and
+                        # keep migrating
+                        self.metrics.faults_injected += 1
+                        self.metrics.chunk_slowdowns += 1
+                        self._advance_clock(f.delay_s)
+                    elif f.kind == "chunk_fail":
+                        self.metrics.faults_injected += 1
+                        abort_reason = f"chunk {boundary} failed"
+                    elif f.kind != "switch":   # no nested switches
+                        self._apply_fault(f)
+                if abort_reason is not None:
+                    break
             # mid-switch policy reversal: the scorer now prefers the SOURCE
             # layout for the queue state — finishing the migration would
             # buy a layout the engine would leave again at once
             if self.coord.mid_switch_reversal(self.active, target,
                                               self.sched.snapshot(), cap_ep):
-                self.ex.drain_decode()
-                self.abort_switch("policy reversal")
-                return None
+                abort_reason = "policy reversal"
+                break
+        if abort_reason is not None:
+            self.ex.drain_decode()
+            self.abort_switch(abort_reason)
+            return None
         # drain to a step boundary so the commit-time dirty-page delta sees
         # every KV write the overlap window produced
         self.ex.drain_decode()
-        alloc, _, st = self.ex.switch_commit(target, self.sched.live())
-        self.sched.alloc = alloc
+        alloc, caches, st = self.ex.switch_commit(target, self.sched.live())
+        self.sched.alloc, self.sched.prefix = alloc, caches
         self.sched.set_layout(target)
         return SwitchRecord(
             t=self.now(), direction=st.direction, total_s=st.total_s,
@@ -396,12 +499,82 @@ class MoebiusEngine:
         return True
 
     # ------------------------------------------------------------------
+    # fault injection (DESIGN.md §12)
+    # ------------------------------------------------------------------
+    def cancel(self, rid: int, *, kind: str = "disconnect") -> bool:
+        """Client-side cancellation (SSE disconnect): drop the request
+        wherever it sits and free its slot/pages through the scheduler's
+        finish path. Returns False for an unknown/finished rid."""
+        self.ex.drain_decode()        # cancel_request needs inflight == 0
+        r = self.sched.cancel_request(rid)
+        if r is None:
+            return False
+        if kind == "disconnect":
+            self.metrics.client_disconnects += 1
+        return True
+
+    def _apply_fault(self, f) -> None:
+        """Act on one fired Fault (see serving/faults.py for the kinds;
+        `rank_fail` never reaches here, the constructor refuses it)."""
+        self.metrics.faults_injected += 1
+        if f.kind == "pool_exhaust":
+            self.metrics.pool_exhaust_events += 1
+            alloc = self.sched.alloc[f.data_group]
+            n = alloc.free_pages(f.pool)
+            pages = alloc.try_alloc(f.pool, n) if n > 0 else None
+            if pages:
+                self._holds.append({
+                    "alloc": alloc, "d": f.data_group, "pool": f.pool,
+                    "pages": pages,
+                    "release_step": self._step_i + f.duration_steps})
+        elif f.kind == "client_disconnect":
+            self.cancel(f.rid)
+        elif f.kind == "chunk_slow":
+            self.metrics.chunk_slowdowns += 1
+            self._advance_clock(f.delay_s)
+        elif f.kind == "switch":
+            # scripted event, not a fault: lets a plan place chunk faults
+            if get_layout(f.target) is not self.active:
+                self.execute_switch(f.target)
+        # chunk_fail outside a switch: nothing to fail — ignored
+
+    def _release_expired_holds(self) -> None:
+        """Release expired pool_exhaust seizures — but only into the
+        allocator that handed the pages out; a switch replaces the
+        scheduler's allocators, and a hold dies with the old one."""
+        if not self._holds:
+            return
+        keep = []
+        for h in self._holds:
+            if self._step_i < h["release_step"]:
+                keep.append(h)
+            elif self.sched.alloc[h["d"]] is h["alloc"]:
+                h["alloc"].release(h["pool"], h["pages"])
+        self._holds = keep
+
+    def _advance_clock(self, dt: float) -> None:
+        """Charge `dt` seconds to the injected clock, or to the wall
+        clock's skip when none is injected."""
+        if dt <= 0:
+            return
+        if self._clock is not None:
+            adv = getattr(self._clock, "advance", None)
+            if adv is not None:
+                adv(dt)
+            return
+        self._clock_skip += dt
+
+    # ------------------------------------------------------------------
     # main loop
     # ------------------------------------------------------------------
     def step(self) -> None:
         self._step_i += 1
         if self.ecfg.idle_skip:
             self._skip_idle()
+        self._release_expired_holds()
+        if self._faults is not None:
+            for f in self._faults.poll(self._step_i, self.now()):
+                self._apply_fault(f)
         self.sched.admit(self.now())
         if self.sched.deadline_due(self.now()):
             # expiry finishes requests in place: drain the fused pipeline
@@ -410,14 +583,20 @@ class MoebiusEngine:
             self.sched.expire_deadlines(self.now())
         # policy: sample once per iteration, between steps, through the
         # scheduler's queue snapshot (in-flight fused tokens count toward
-        # the live-token load); no SLO attainment without QoS
+        # the live-token load)
         cap_ep = self.cc.capacity_tokens(self.cfg, self.G, EP)
+        att = (self.metrics.recent_attainment("interactive")
+               if self.ecfg.qos else None)
         dec = self.coord.observe_queues(self.sched.snapshot(), cap_ep,
-                                        attainment=None)
+                                        attainment=att)
         if dec.switch:
             self.execute_switch(dec.target)
-        self.sched.start_prefills()
-        self._mixed_step()
+        self.sched.start_prefills()          # admit waiting -> prefill
+        if self.ecfg.mixed_batch:
+            self._mixed_step()
+        else:
+            self._run_prefill()
+            self._decode_step()
         self._charge_dispatches()
         self.metrics.pages_resident(sum(a.total_held()
                                         for a in self.sched.alloc))

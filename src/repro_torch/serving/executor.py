@@ -9,7 +9,10 @@ step runtimes (`ResidentRuntime`); the fused decode loop's device state
 and its one-deep dispatch pipeline; and the `SwitchExecutor`. It consumes
 the Scheduler's `MixedPlan`s: `run_mixed` is THE dispatch path,
 `run_decode` its decode-only wrapper, `decode_fused` the fused N-step
-path (`EngineConfig.decode_steps > 1`).
+path (`EngineConfig.decode_steps > 1`), and `run_prefill` with
+`run_decode` the two-phase iteration's (`mixed_batch=False`). It also
+runs the Scheduler's `CopyPages` decisions, the prefix cache's
+copy-on-write forks, through the kv_pack kernels (`copy_pages`).
 
 Fixed addresses. The decode kinds (single steps at Sq == 1 and the fused
 loop) run as CUDA graphs on a card, captured at `warmup()` for every
@@ -27,10 +30,14 @@ switches. So every tensor they read stays where it was captured:
     tensors are the graphs' static inputs; the sampling key is one of
     them.
 Mixed steps that carry a prefill chunk (Sq > 1) stay eager: their expert
-buffers are sized from the step's largest load, a host read.
+buffers are sized from the step's largest load, a host read. Page copies
+are eager launches too, between replays, in the order the Scheduler
+emitted them; a fork that swaps a running request's block-table entry
+reaches the fused loop's device state through its delta rows
+(`Scheduler.plan_fused` reports it as a grow).
 
-Not in this slice: the copy-on-write page mover of the prefix cache, the
-graphed prefill-chunk step, and cross-world switches.
+Not in this slice: the graphed prefill-chunk step and cross-world
+switches.
 """
 from __future__ import annotations
 
@@ -46,7 +53,7 @@ from repro_torch.core.switch_exec import SwitchExecutor
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import init_params
 from repro_torch.serving.device_state import DeviceDecodeState, Staged
-from repro_torch.serving.kvcache import CacheConfig
+from repro_torch.serving.kvcache import CacheConfig, copy_pages
 from repro_torch.serving.metrics import ServeMetrics
 from repro_torch.serving.request import Request
 from repro_torch.serving.scheduler import MixedPlan, MixedRow
@@ -317,7 +324,10 @@ class Executor:
         are allocated here and their graphs captured too. Each capture
         first runs its step once on the static inputs, which hold no
         request (the active layout's run is the "runs once" of repro's
-        warmup). Every later build counts in `rt.late_builds`."""
+        warmup). With the prefix cache on, a null self-copy of page 0 per
+        layout and bank loads the page mover's kernels here, as repro
+        compiles its copier. Every later build counts in
+        `rt.late_builds`."""
         if self.ecfg.chunk_layers > 0 and len(self.layouts) > 1:
             self._ensure_second_bank()
         N = self.ecfg.decode_steps
@@ -327,12 +337,33 @@ class Executor:
                     self._mixed_fn(lo, b, 1, bank)
                     if N > 1:
                         self._decode_loop_fn(lo, b, N, bank)
+                if self.ecfg.prefix_cache:
+                    copy_pages(self._kvs[bank][0], self.cfg, self.cc, lo, 0,
+                               [(0, 0)])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.rt.mark_warm()
 
     # ------------------------------------------------------------------
-    # mixed-batch dispatch (THE serve path)
+    # device page copies (the Scheduler's CopyPages decisions)
+    # ------------------------------------------------------------------
+    def copy_pages(self, d: int, pool: int, pairs: list) -> None:
+        """The CoW mover (kvcache.copy_pages) on data group d of the active
+        bank's buffer, in the active layout's view. EP view: the pairs
+        apply to `pool`'s rank only; pooled views: every rank copies its
+        head slice."""
+        copy_pages(self.kv_flat[d], self.cfg, self.cc, self.active, pool,
+                   pairs)
+
+    def run_copies(self, copies: list) -> None:
+        """Execute drained CopyPages decisions in emission order (the order
+        encodes the free->realloc hazards the Scheduler already resolved);
+        each decision is one gather and one scatter launch."""
+        for c in copies:
+            self.copy_pages(c.d, c.pool, list(c.pairs))
+
+    # ------------------------------------------------------------------
+    # mixed-batch dispatch (THE serve path; two-phase wrappers below)
     # ------------------------------------------------------------------
     def _step_key(self, step_i: int) -> int:
         return (self.ecfg.seed + 1) * 1000003 + step_i
@@ -370,6 +401,16 @@ class Executor:
             self.metrics.decode(n_dec, 1)
         self.metrics.dispatch(mixed=bool(n_dec and n_pref))
         return nxt.cpu().numpy()
+
+    def run_prefill(self, picked: list, step_i: int) -> np.ndarray:
+        """Two-phase wrapper: one chunked prefill step (rows from
+        Scheduler.select_prefill_rows) as a prefill-only MixedPlan."""
+        rows = tuple(MixedRow(r, d, row, r.prefill_pos, n, "prefill")
+                     for r, d, row, n in picked)
+        plan = MixedPlan(B=self.active.prefill_width(self.G),
+                         Sq=self.prefill_chunk, rows=rows,
+                         prefill_tokens=sum(n for *_, n in picked))
+        return self.run_mixed(plan, step_i)
 
     def run_decode(self, B: int, stepped: list[Request],
                    step_i: int) -> dict[int, int]:
@@ -442,9 +483,9 @@ class Executor:
             self.drain_decode()            # step boundary before a rebuild
             st = self._rebuild_dstate(B, sched)
         joins, grows, plan, capped, starved = sched.plan_fused(st, N)
-        copies = sched.drain_copies()
-        if copies:      # only the prefix cache forks pages
-            raise RuntimeError(f"unexpected page copies {copies}")
+        # forks land before the replay that appends to their pages; a fork
+        # of a slotted request's tail is one of `grows`
+        self.run_copies(sched.drain_copies())
         # deltas must land even when nothing steps: plan_fused already
         # recorded the joins in the host mirror, and a budget-clamped join
         # still needs its token/position/table row on device for later

@@ -10,13 +10,19 @@ Each rank owns ONE flat element pool; the EP and TP layouts are *views*
 
 pages_tp = pages_ep * K // Kl, so both views cover exactly NE elements.
 Page 0 of every view is the NULL page: inactive slots write there.
-The copy-on-write page mover (prefix cache) is not ported yet.
+
+`copy_pages` is the prefix cache's copy-on-write page mover (repro's
+`make_copy_pages`): it runs on the row-batched kv_pack kernels.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from repro_torch.core.layouts import LayoutSpec, get_layout, group_info
+from repro_torch.kernels.kv_pack.ops import (gather_pages_rows,
+                                             scatter_pages_rows)
 from repro_torch.models.common import ModelConfig
 from repro_torch.serving.paging import PagePoolAllocator
 
@@ -70,3 +76,53 @@ class PageAllocator(PagePoolAllocator):
             super().__init__(G, cc.pages_ep, per_rank=True)
         else:
             super().__init__(1, cc.pages_tp(cfg, G), per_rank=False)
+
+
+# ---------------------------------------------------------------------------
+# Device page copy (copy-on-write mover; same view, within each pool)
+# ---------------------------------------------------------------------------
+
+def _cow_index(pairs, pages: int) -> tuple[list, list]:
+    """(src, dst) page lists of one copy decision, after the host checks
+    that make one gather of every source then one scatter equal to
+    repro's pair-by-pair order: no pair's destination is another pair's
+    source, no destination repeats (a scatter to one page twice is
+    unspecified), and every page lies in [0, pages)."""
+    src = [int(a) for a, _ in pairs]
+    dst = [int(b) for _, b in pairs]
+    if len(set(dst)) != len(dst):
+        raise ValueError(f"copy pairs {pairs}: a destination page repeats")
+    for i, b in enumerate(dst):
+        if any(b == a for j, a in enumerate(src) if j != i):
+            raise ValueError(f"copy pairs {pairs}: page {b} is the "
+                             f"destination of one pair and the source of "
+                             f"another")
+    if not all(0 <= p < pages for p in src + dst):
+        raise ValueError(f"copy pairs {pairs}: a page outside [0, {pages})")
+    return src, dst
+
+
+def copy_pages(kv: torch.Tensor, cfg: ModelConfig, cc: CacheConfig,
+               layout, pool: int, pairs) -> torch.Tensor:
+    """dst_page <- src_page for every (src, dst) pair, across all KV layers,
+    in place in one data group's flat buffer `kv` (G, NE), within each
+    rank's slice of `layout`'s view. EP view: only rank `pool` copies (its
+    private pool); pooled views: every rank copies its head slice of the
+    pages, with one index shared over the stacked G dim.
+
+    The buffer is viewed as (R = L * 2, pages, M = page * K_view * dh) rows
+    and moved by `gather_pages_rows` then `scatter_pages_rows`: the plain
+    versions on a CPU tensor, the kv_pack kernels on a CUDA one. Returns
+    `kv`."""
+    G = kv.shape[0]
+    spec = get_layout(layout)
+    L, two, pages, page, K, dh = cc.view_shape(cfg, G, spec)
+    src, dst = _cow_index(pairs, pages)
+    rows = (kv[pool].view(L * two, pages, page * K * dh) if spec.kv_per_rank
+            else kv.view(G, L * two, pages, page * K * dh))
+    idx = torch.tensor([src, dst], dtype=torch.int32)
+    if kv.is_cuda:
+        # pinned, so the upload does not wait for the card's queued work
+        idx = idx.pin_memory().to(kv.device, non_blocking=True)
+    scatter_pages_rows(rows, idx[1], gather_pages_rows(rows, idx[0]))
+    return kv

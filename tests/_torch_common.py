@@ -30,3 +30,33 @@ def jax_params(jcfg, seed: int = 0):
 
 def to_jnp(t: torch.Tensor):
     return jnp.asarray(t.numpy())
+
+
+def assert_greedy_agree(jcfg, jp, prompts: dict, got: dict, ref: dict,
+                        margin: float = 1e-4) -> int:
+    """The port's greedy tokens `got` equal repro's `ref` (rid -> tokens)
+    wherever repro's top-2 logit margin clears `margin` (ROADMAP C3): a
+    request is compared position by position up to its first difference,
+    which must sit where repro's margin (its `lm_forward` teacher-forced on
+    the prompt and `ref`) is at most `margin`; past it the two streams
+    condition on different tokens. Returns how many positions the margin
+    excluded."""
+    from repro.models.transformer import lm_forward
+    assert set(got) == set(ref)
+    excluded = 0
+    for rid, want in ref.items():
+        if list(got[rid]) == list(want):
+            continue
+        assert len(got[rid]) == len(want), (rid, got[rid], want)
+        seq = list(prompts[rid]) + list(want)
+        lg = np.asarray(lm_forward(jcfg, jp, jnp.array([seq[:-1]]),
+                                   remat=False))[0, len(prompts[rid]) - 1:]
+        top2 = np.sort(lg, axis=-1)[:, -2:]
+        for j, (a, b) in enumerate(zip(got[rid], want)):
+            if a == b:
+                continue
+            assert top2[j, 1] - top2[j, 0] <= margin, (
+                rid, j, list(got[rid]), list(want))
+            excluded += len(want) - j
+            break
+    return excluded

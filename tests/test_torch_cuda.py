@@ -486,3 +486,59 @@ def test_each_graph_holds_both_kernels(card):
         n = N if key[1] == "decode_loop" else 1
         assert e.launches.get("paged_attention") == L * n, (key, e.launches)
         assert e.launches.get("grouped_matmul") == 2 * L * n, key
+
+
+# ---------------------------------------------------------------------------
+# The prefix cache's copy-on-write page mover (serving/kvcache.copy_pages)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout,pool", [("ep", 1), ("tp", 0)])
+def test_cow_mover_kernels_match_plain(card, dtype, layout, pool):
+    """The CoW mover on a card (one gather_pages_rows and one
+    scatter_pages_rows launch) against its plain version, bit-equal, in
+    the EP view (one rank's pool) and the pooled view (every rank)."""
+    from repro_torch.serving.kvcache import CacheConfig, copy_pages
+    cfg = _graph_model(dtype)
+    cc = CacheConfig(**_GRAPH_CC)
+    G = 2
+    rng = np.random.default_rng(5)
+    kv = torch.from_numpy(rng.standard_normal((G, cc.nelems(cfg, G))))
+    kv = kv.to(dtype)
+    pages = cc.view_shape(cfg, G, layout)[2]
+    pairs = [(3, 9), (pages - 1, 4), (11, 12)]
+    ref = copy_pages(kv.clone(), cfg, cc, layout, pool, pairs)
+    dispatch.reset_counts()
+    got = copy_pages(kv.to(card), cfg, cc, layout, pool, pairs)
+    torch.cuda.synchronize()
+    assert _bits_equal(got.cpu(), ref)
+    assert not _bits_equal(ref, kv)
+    assert dispatch.calls("gather_pages_rows") == 1
+    assert dispatch.calls("scatter_pages_rows") == 1
+
+
+def test_prefix_cache_on_card_matches_cache_off(card):
+    """Shared prompts served from graphs (fused loop of 4) with the cache
+    on give the cache-off tokens; CoW forks run on the kv_pack kernels and
+    nothing is captured after warmup."""
+    from repro_torch.serving.request import Request
+
+    def run(prefix_cache):
+        eng = _graph_engine(card, torch.float32, decode_steps=4,
+                            prefix_cache=prefix_cache)
+        rng = np.random.default_rng(1)
+        head = rng.integers(5, 500, 10).tolist()
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=head + rng.integers(
+                5, 500, i % 3).tolist(), max_new_tokens=12, arrival_s=0.0))
+        dispatch.reset_counts()
+        eng.run()
+        assert eng.ex.rt.late_builds == 0
+        return eng, {r.rid: r.output for r in eng.finished}
+
+    _, base = run(False)
+    eng, out = run(True)
+    assert out == base
+    assert eng.metrics.prefix_hits > 0 and eng.metrics.cow_forks > 0
+    assert dispatch.calls("gather_pages_rows") >= eng.metrics.cow_forks
+    assert dispatch.calls("scatter_pages_rows") >= eng.metrics.cow_forks

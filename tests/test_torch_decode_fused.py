@@ -85,6 +85,7 @@ def test_fused_matches_single_step(setup):
         assert eng._pending is None
         assert all(r.inflight == 0 for r in eng.finished)
         eng.alloc[0].check()
+        eng.clear_prefix_cache()          # the cache holds finished prompts
         assert eng.alloc[0].total_held() == 0
         # the fused control plane amortized the decode dispatches
         assert (eng.metrics.decode_dispatches
@@ -111,6 +112,7 @@ def test_fused_switch_drains_to_boundary(setup, chunk):
     eng = _engine(cfg, tp, decode_steps=4, chunk_layers=chunk)
     assert _drive(eng, _reqs(), switch_at=4) == ref
     assert len(eng.switch_records) == 1 and eng.active == "ep"
+    eng.clear_prefix_cache()              # the cache holds finished prompts
     for a in eng.alloc:
         a.check()
         assert a.total_held() == 0

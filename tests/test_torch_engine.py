@@ -13,6 +13,7 @@ from repro.serving.kvcache import CacheConfig as JCacheConfig
 from repro.serving.request import Request as JRequest
 from repro_torch.core.policy import PolicyConfig as PortPolicy
 from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+from repro_torch.serving.faults import Fault, FaultPlan
 from repro_torch.serving.kvcache import CacheConfig
 from repro_torch.serving.request import Request
 from tests._torch_common import jax_params, port_tiny_moe
@@ -74,7 +75,11 @@ def test_engine_serves_to_completion_and_is_deterministic(setup):
         assert len(eng.finished) == 6 and not eng.sched.has_work()
         for r in eng.finished:
             assert len(r.output) == r.max_new_tokens
-        # every page went back to the pool (no prefix cache pins any)
+        # every page went back to the pool once the prefix cache, which
+        # holds the finished prompts, is cleared
+        for a in eng.alloc:
+            a.check()
+        eng.clear_prefix_cache()
         for a in eng.alloc:
             a.check()
             assert a.total_held() == 0
@@ -84,11 +89,20 @@ def test_engine_serves_to_completion_and_is_deterministic(setup):
 
 
 def test_engine_rejects_unported_options():
-    with pytest.raises(TypeError):
-        EngineConfig(prefix_cache=True)
-    with pytest.raises(TypeError):
-        EngineConfig(qos=True)
+    """What is still unported raises instead of being ignored: a fault
+    plan holding a `rank_fail` (elastic world size), sized `@world`
+    layouts and the full-mesh `tpep` layout."""
     cfg = port_tiny_moe()
+    plan = FaultPlan([Fault("rank_fail", at_step=3, rank=1)])
+    with pytest.raises(NotImplementedError, match="rank_fail"):
+        MoebiusEngine(cfg, (1, 2), CacheConfig(**CC),
+                      ecfg=EngineConfig(policy=STATIC, faults=plan),
+                      device="cpu")
+    for layouts in (("tp", "ep@2"), ("tp", "tpep")):
+        with pytest.raises(NotImplementedError):
+            MoebiusEngine(cfg, (1, 2), CacheConfig(**CC),
+                          ecfg=EngineConfig(policy=STATIC, layouts=layouts),
+                          device="cpu")
     with pytest.raises(NotImplementedError):
         MoebiusEngine(cfg, (1, 2), CacheConfig(**CC),
                       ecfg=EngineConfig(policy=STATIC,
@@ -115,3 +129,26 @@ def test_sampled_serving_is_seeded(setup):
     a, b, c = run(0), run(0), run(1)
     assert a == b and a != c
     assert all(0 <= t < cfg.vocab_size for out in a.values() for t in out)
+
+
+def test_engine_config_defaults_match_repro():
+    """`EngineConfig()` carries repro's defaults field by field. The
+    exceptions exist in one package only: repro's kernel-backend selectors
+    and `warm_switches` (XLA compiles), the port's `graphs` (CUDA graphs)."""
+    import dataclasses
+    ours = {f.name: f for f in dataclasses.fields(EngineConfig)}
+    theirs = {f.name: f for f in dataclasses.fields(JEngineConfig)}
+    only_repro = {"attn_backend", "moe_backend", "switch_backend",
+                  "warm_switches"}
+    assert set(theirs) - set(ours) == only_repro
+    assert set(ours) - set(theirs) == {"graphs"}
+    a, b = EngineConfig(), JEngineConfig()
+    for name in sorted(set(ours) & set(theirs)):
+        if name == "policy":       # each package's own PolicyConfig
+            assert (dataclasses.asdict(a.policy)
+                    == dataclasses.asdict(b.policy))
+            continue
+        assert getattr(a, name) == getattr(b, name), name
+    for name in ("mixed_batch", "token_budget", "prefix_cache", "qos",
+                 "faults"):
+        assert name in ours

@@ -22,6 +22,8 @@ def test_port_imports_no_jax_or_repro():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "for m in ('repro_torch.serving.qos', 'repro_torch.serving.faults'):\n"
+        "    assert m in sys.modules, m\n"
         "n = sum(1 for m in sys.modules if m.startswith('repro_torch.'))\n"
         "print('ok', n)\n")
     env = dict(os.environ)
@@ -30,7 +32,7 @@ def test_port_imports_no_jax_or_repro():
                          text=True, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
-    assert int(out.stdout.split()[1]) >= 48     # every module was imported
+    assert int(out.stdout.split()[1]) >= 50     # every module was imported
 
 
 def test_chip_smoke_imports_no_jax_or_repro():
