@@ -92,6 +92,27 @@ Phases (any failure exits non-zero):
                (counted apart from the switch's), capture nothing after
                warmup, and give every page back once cleared. Prints tok/s,
                prefill tokens saved, and one CoW fork's time.
+ 10. elastic — world size as a layout dimension. First the small f32
+               model at mesh (2, 4) from graphs through the two scripts of
+               tests/test_elastic_world.py (tp -> tp@2 and back, ep ->
+               tp@2 -> ep, a tp@2 start that grows; a rank_fail before, at
+               each chunk of and after a shrink): byte-identical to the run
+               that never resized or failed. Then the serve model on G = 4
+               stacked ranks with tp, ep and tp@2 resident (graphs of each
+               at its own world, fused 8): from ep, rank 1 fails (its
+               requests re-prefill, its pool dead until they have), ep ->
+               tp@2 in layer chunks, rank 1 fails inside tp@2 (the whole
+               group re-prefills), tp@2 -> tp monolithic. After each
+               cross-world commit the store is bit-equal to a fresh pack
+               and every live request's K/V to `copy_kv_pages_host` on the
+               source's snapshot; tokens pass the prefix phase's margin
+               rule against a run that never failed or resized; the row
+               gather (#4) is bit-equal to its plain version at every
+               staging launch, attention and the GEMM at a tp@2 shape
+               within bf16 tolerance; nothing is captured after warmup.
+               Prints each switch's plan, pause and total, the bytes put
+               on the card at commit, the host bytes held, the device
+               peak, the recoveries and tok/s in each world.
 
 Prints the card's name and power limit and a JSON line of per-kernel
 numbers; the last line is the JSON object
@@ -2063,6 +2084,492 @@ def phase_prefix(results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: elastic world size — sized layouts, live switches between
+# worlds staged through the host, rank_fail recovery with degraded pools
+# ---------------------------------------------------------------------------
+
+# the full-width script, in engine iterations (host-only scheduling: the
+# iterations depend on token counts, not widths; a CPU rehearsal at tiny
+# width with this page geometry placed them): rank 1 fails in ep while its
+# two requests prefill, the shrink finds requests mid-prefill and running,
+# the failure inside tp@2 hits the whole group, the grow finds five live
+ELASTIC_FAIL_EP = 4         # rank_fail rank 1 in ep (degraded pool)
+ELASTIC_SHRINK = 8          # ep -> tp@2 chunked, a layer a chunk
+ELASTIC_FAIL_TP2 = 12       # rank_fail rank 1 in tp@2 (the whole group)
+ELASTIC_GROW = 16           # tp@2 -> tp monolithic
+
+
+def elastic_small_run(cfg, cc, params, reqs, *, start="tp", script=(),
+                      plan=None):
+    """One engine of tests/test_elastic_world.py on the card: mesh (2, 4),
+    layouts tp, ep and tp@2 (every one's graphs captured at warmup, at its
+    own world), `script` (iteration, target) switches, `plan` a FaultPlan.
+    Returns (engine, rid -> generated text)."""
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.faults import FaultPlan
+    eng = MoebiusEngine(cfg, (2, 4), cc, params_global=params,
+                        ecfg=EngineConfig(
+                            start_layout=start, layouts=("tp", "ep", "tp@2"),
+                            ladder=(4, 8), prefill_chunk=8,
+                            policy=static_policy(), seed=SEED,
+                            chunk_layers=1,
+                            faults=None if plan is None else FaultPlan(plan)))
+    eng.warmup()
+    P = {r.rid: len(r.prompt) for r in reqs}
+    for r in reqs:
+        eng.submit(r)
+    todo = dict(script)
+    i = 0
+    while eng.sched.has_work():
+        if i in todo:
+            eng.execute_switch(todo.pop(i))
+        eng.step()
+        i += 1
+        check(i < 800, "elastic: engine made no progress")
+    eng.run()
+    check(not todo and eng.ex.rt.late_builds == 0,
+          f"elastic: switches left {todo}, {eng.ex.rt.late_builds} captures "
+          f"after warmup")
+    for a in eng.alloc:
+        a.check()
+    return eng, {r.rid: list(r.prompt[P[r.rid]:]) + list(r.output)
+                 for r in eng.finished}
+
+
+def phase_elastic_small() -> None:
+    """(a) The parity phase's f32 model at mesh (2, 4) from graphs, through
+    the two scripts of tests/test_elastic_world.py: shrink tp -> tp@2 and
+    grow back at steps 2, 5 and 9, ep -> tp@2 -> ep, a start at tp@2 that
+    grows; then a rank failure before, at chunk 0, at chunk 1 and after a
+    tp -> tp@2 shrink. Every run byte-identical to the one that never
+    resized and never failed, with that test's counters."""
+    import numpy as np
+
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.faults import Fault
+    from repro_torch.serving.kvcache import CacheConfig
+    from repro_torch.serving.request import Request
+
+    cfg = parity_model()
+    cc = CacheConfig(page_size=16, pages_ep=16, max_pages_per_req=4)
+    params = init_params(cfg, SEED, device="cuda")
+
+    def resize_reqs():
+        rng = np.random.default_rng(SEED)
+        return [Request(rid=i, prompt=rng.integers(
+            5, 200, int(rng.integers(3, 10))).tolist(),
+            max_new_tokens=int(rng.integers(4, 12)), arrival_s=0.0)
+            for i in range(6)]
+
+    def fault_reqs():
+        rng = np.random.default_rng(SEED)
+        return [Request(rid=i, prompt=rng.integers(5, 200, 6).tolist(),
+                        max_new_tokens=10, arrival_s=0.0) for i in range(6)]
+
+    runs = 0
+    _, base = elastic_small_run(cfg, cc, params, resize_reqs())
+    for script, start, want in (
+            (((2, "tp@2"), (5, "tp")), "tp", ("tp", 4, 2)),
+            (((5, "tp@2"), (8, "tp")), "tp", ("tp", 4, 2)),
+            (((9, "tp@2"), (12, "tp")), "tp", ("tp", 4, 2)),
+            (((2, "ep"), (6, "tp@2"), (10, "ep")), "tp", ("ep", 4, 2)),
+            (((4, "tp"),), "tp@2", ("tp", 4, 1))):
+        eng, out = elastic_small_run(cfg, cc, params, resize_reqs(),
+                                     start=start, script=script)
+        s = eng.metrics.summary()
+        check(out == base, f"elastic small: {script} from {start} changed "
+                           f"the tokens")
+        check((str(eng.active), eng.sched.G, s["cross_world_switches"])
+              == want and s["switch_aborts"] == 0
+              and len(eng.finished) == 6,
+              f"elastic small: {script}: {str(eng.active)} G={eng.sched.G} "
+              f"{s}")
+        runs += 1
+    ls = eng.layouts_summary()
+    check({lo["name"]: lo["world"] for lo in ls["layouts"]}
+          == {"tp": 4, "ep": 4, "tp@2": 2}, f"elastic small: {ls}")
+    plans = {
+        "before": (Fault("rank_fail", at_step=3, data_group=0, rank=1),
+                   Fault("switch", at_step=8, target="tp@2")),
+        "chunk0": (Fault("switch", at_step=4, target="tp@2"),
+                   Fault("rank_fail", switch_chunk=0, data_group=0,
+                         rank=1)),
+        "chunk1": (Fault("switch", at_step=4, target="tp@2"),
+                   Fault("rank_fail", switch_chunk=1, data_group=0,
+                         rank=1)),
+        "after": (Fault("switch", at_step=4, target="tp@2"),
+                  Fault("rank_fail", at_step=12, data_group=0, rank=1),
+                  Fault("switch", at_step=20, target="tp"))}
+    _, base = elastic_small_run(cfg, cc, params, fault_reqs())
+    for phase, plan in plans.items():
+        eng, out = elastic_small_run(cfg, cc, params, fault_reqs(),
+                                     plan=plan)
+        s = eng.metrics.summary()
+        check(out == base, f"elastic small: rank_fail {phase} changed the "
+                           f"tokens")
+        want = {"before": ("tp@2", 2, 1, 0), "chunk0": ("tp", 4, 0, 1),
+                "chunk1": ("tp", 4, 0, 1), "after": ("tp", 4, 2, 0)}[phase]
+        check((str(eng.active), eng.sched.G, s["cross_world_switches"],
+               s["switch_aborts"]) == want and s["rank_failures"] == 1
+              and eng._faults.done and not eng.sched.dead_pools
+              and len(eng.finished) == 6,
+              f"elastic small: rank_fail {phase}: {str(eng.active)} "
+              f"G={eng.sched.G} {s}")
+        runs += 1
+    print(f"elastic small: {runs} resized or rank-failed runs (f32, mesh "
+          f"(2, 4), graphs of tp, ep and tp@2) give the never-resized, "
+          f"never-failed tokens, with tests/test_elastic_world.py's "
+          f"counters", flush=True)
+
+
+def req_kv(kv, cfg, cc, G: int, spec, pool: int, pages: list, n: int):
+    """One request's K/V at positions [0, n) in full-head form, (L, 2, n, K,
+    dh), from one data group's buffer `kv` (G, NE) read through `spec`'s
+    view on G ranks (the pooled view reassembles the heads from the
+    representative ranks)."""
+    import torch
+
+    from repro_torch.core.layouts import group_info
+    view = cc.view_shape(cfg, G, spec)
+    idx = torch.tensor(pages[:-(-n // cc.page_size)], device=kv.device)
+    if spec.kv_per_rank:
+        x = kv[pool].view(view)[:, :, idx]
+    else:
+        x = torch.cat([kv[g].view(view)[:, :, idx] for g in
+                       range(0, G, group_info(cfg, G).kv_rep)], dim=4)
+    return x.reshape(view[0], 2, -1, cfg.num_kv_heads, cfg.dh)[:, :, :n]
+
+
+def phase_elastic(results: dict) -> None:
+    """(a) phase_elastic_small; (b) qwen3-235b-a22b at full width (4
+    layers, bf16) on G = 4 stacked ranks with tp, ep and tp@2 resident
+    (`EngineConfig()` defaults, prefill chunk 128, fused loop of 8, graphs
+    of every layout at its own world): the serve phase's 8 requests from
+    ep, a rank_fail of rank 1 in ep, a chunked ep -> tp@2 switch (layout and
+    world in one), a rank_fail inside tp@2 and a monolithic tp@2 -> tp
+    grow. After each cross-world commit the store is bit-equal to a fresh
+    pack of the destination from the canonical weights and every live
+    request's K/V bit-equal to `copy_kv_pages_host` on the source's
+    snapshot; each failure hits what `affected_by_pool_loss` names,
+    conserves pages and is recovered; tokens pass the prefix phase's
+    margin rule against the run that never failed or resized. Then #4 is
+    held bit-equal to its plain version at every staging launch the path
+    made, and #1 and #2 at a tp@2 shape within bf16 tolerance."""
+    import torch
+
+    from repro_torch.core.switch import (affected_by_pool_loss,
+                                         copy_kv_pages_host,
+                                         pack_experts_host)
+    from repro_torch.core import switch_exec
+    from repro_torch.distributed.elastic import fail_rank
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.kv_pack.ref import gather_pages_rows_ref
+    from repro_torch.kernels.moe_gemm.kernel import grouped_matmul_cuda
+    from repro_torch.kernels.moe_gemm.ref import grouped_matmul_ref
+    from repro_torch.kernels.paged_attention.kernel import \
+        paged_attention_cuda
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.request import Request
+
+    t0 = time.time()
+    phase_elastic_small()
+    print(f"elastic small: {time.time() - t0:.1f} s", flush=True)
+    cfg, cc = serve_model()
+    L, G = cfg.num_layers, 4
+    prompts = serve_prompts(cfg)
+
+    def trace():
+        return [Request(rid=i, prompt=list(p), max_new_tokens=32,
+                        arrival_s=0.0) for i, p in enumerate(prompts)]
+
+    params = init_params(cfg, SEED, device="cuda")
+
+    def engine(**kw):
+        kw = {"prefill_chunk": 128, "seed": SEED, "decode_steps": 8,
+              "policy": static_policy(), "start_layout": "ep", **kw}
+        eng = MoebiusEngine(cfg, (1, G), cc, params_global=params,
+                            ecfg=EngineConfig(**kw))
+        eng.warmup()
+        return eng
+
+    # the reference: ep, graphs, never failed or resized
+    ref_eng = engine(layouts=("ep",))
+    ref, ref_wall, _ = serve_trace(ref_eng, trace())
+    print(f"elastic reference (ep, G=4, graphs N=8, never failed or "
+          f"resized): {sum(map(len, ref.values())) / ref_wall:.2f} tok/s",
+          flush=True)
+    del ref_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = engine(layouts=("tp", "ep", "tp@2"))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex = eng.ex
+    t_build = time.time() - t0
+    hb = ex.host_bytes()
+    store_bytes = sum(v.numel() * v.element_size()
+                      for v in ex._stores[0].values())
+    check(ex.banks == 1 and hb["canonical"] == store_bytes
+          and hb["staging"] >= store_bytes and ex.rt.late_builds == 0,
+          f"elastic: banks {ex.banks}, host bytes {hb}")
+    print(f"elastic: engine built and warmed in {t_build:.2f} s "
+          f"({len(ex.rt.executables)} graphs, tp/ep at world 4 and tp@2 at "
+          f"world 2); host bytes held: canonical expert copy "
+          f"{hb['canonical']} ({hb['canonical'] / 2**30:.2f} GiB), staging "
+          f"{hb['staging']} ({hb['staging'] / 2**30:.2f} GiB); device "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    # every staging launch of the main path, kept for the bit check after
+    staged, inner_gather = [], switch_exec.gather_pages_rows
+
+    def gather(pool, idx):
+        out = inner_gather(pool, idx)
+        staged.append((pool.clone(), idx.clone(), out.clone()))
+        return out
+
+    switch_exec.gather_pages_rows = gather
+
+    def store_is_fresh() -> bool:
+        w = ex._world(eng.active)
+        for li in range(L):
+            one = {k: ex._moe_host[k][li:li + 1].cuda() for k in ("w13",
+                                                                  "w2")}
+            fresh = pack_experts_host(cfg, one, eng.active, w, 0, 1)
+            for k, want in zip(("w13", "w2"), fresh):
+                if not torch_equal(ex._experts[k][li:li + 1], want):
+                    return False
+            del one, fresh
+        return True
+
+    # the K/V oracle: snapshot the source just before each commit
+    snaps = []
+    inner_commit = ex.xw.commit
+
+    def commit(live, kv_flat, **kw):
+        s = ex.xw.session
+        snaps.append((s.src, s.G_src, kv_flat[0].to("cpu", copy=True),
+                      {r.rid: (r.pool_rank, list(r.pages),
+                               r.prefill_pos + max(len(r.output) - 1, 0))
+                       for r in live if r.pages}))
+        return inner_commit(live, kv_flat, **kw)
+
+    ex.xw.commit = commit
+    log, hits, fails, untimed = [], [], [], []
+    world_time: dict = {}
+
+    def after_commit(what):
+        rec = eng.switch_records[-1]
+        src, Gs, snap, reqs = snaps[-1]
+        w, spec = ex._world(eng.active), eng.active
+        t1 = time.time()
+        check(store_is_fresh(), f"elastic {what}: store differs from a "
+                                f"fresh pack of {spec}")
+        moves, n_req = [], 0
+        for r in eng.sched.live():
+            if r.rid not in reqs or reqs[r.rid][2] == 0:
+                continue
+            pool, pages, n = reqs[r.rid]
+            k = -(-n // cc.page_size)
+            moves += [(pool, a, r.pool_rank, b)
+                      for a, b in zip(pages[:k], r.pages[:k])]
+        want = torch.zeros((w, ex.NE), dtype=snap.dtype)
+        copy_kv_pages_host(cfg, cc, src, spec, Gs, w, snap, want, moves, 0,
+                           L)
+        got = eng.kv_flat[0].cpu()
+        for r in eng.sched.live():
+            if r.rid not in reqs or reqs[r.rid][2] == 0:
+                continue
+            n = reqs[r.rid][2]
+            a = req_kv(got, cfg, cc, w, spec, r.pool_rank, r.pages, n)
+            b = req_kv(want, cfg, cc, w, spec, r.pool_rank, r.pages, n)
+            c = req_kv(snap, cfg, cc, Gs, src, reqs[r.rid][0],
+                       reqs[r.rid][1], n)
+            check(torch_equal(a, b) and torch_equal(a, c),
+                  f"elastic {what}: request {r.rid} K/V differ")
+            n_req += 1
+        check(n_req > 0, f"elastic {what}: no live request to compare")
+        h2d = store_bytes + w * ex.NE * eng.kv_flat.element_size()
+        log.append((what, rec, n_req, h2d))
+        untimed.append(time.time() - t1)
+
+    def fail(what):
+        ex.drain_decode()
+        t1 = time.time()
+        live = list(eng.running.values()) + list(eng.prefilling)
+        per_rank = eng.active.kv_per_rank
+        want = {r.rid for r in affected_by_pool_loss(live, 0, 1, per_rank)}
+        held = [a.total_held() for a in eng.alloc]
+        dead = set(eng.sched.dead_pools)
+        untimed.append(time.time() - t1)
+        hit = {r.rid for r in fail_rank(eng, 0, 1)}
+        check(hit == want and hit, f"elastic {what}: hit {hit}, "
+                                   f"affected_by_pool_loss {want}")
+        for a in eng.alloc:
+            a.check()
+        check(all(r.pages == [] for r in eng.sched.waiting
+                  if r.rid in hit), f"elastic {what}: a hit request kept "
+                                    f"pages")
+        check(eng.sched.dead_pools == dead | ({(0, 1)} if per_rank else
+                                              set()),
+              f"elastic {what}: dead pools {eng.sched.dead_pools}")
+        fails.append((what, sorted(hit), len(live), held,
+                      [a.total_held() for a in eng.alloc]))
+
+    def shrink():
+        eng.ecfg.chunk_layers = 1
+        check(eng.execute_switch("tp@2"), "elastic: ep -> tp@2 aborted")
+        eng.ecfg.chunk_layers = 0
+        after_commit("ep->tp@2 chunked")
+
+    def grow():
+        check(eng.execute_switch("tp"), "elastic: tp@2 -> tp")
+        after_commit("tp@2->tp monolithic")
+
+    hooks = {ELASTIC_FAIL_EP: lambda: fail("rank_fail in ep"),
+             ELASTIC_SHRINK: shrink,
+             ELASTIC_FAIL_TP2: lambda: fail("rank_fail in tp@2"),
+             ELASTIC_GROW: grow}
+    inner_step = eng.step
+
+    def step():
+        w = ex._world(eng.active)
+        d0, p0, t1 = (eng.metrics.decode_tokens, eng.metrics.prefill_tokens,
+                      time.time())
+        inner_step()
+        acc = world_time.setdefault(w, [0.0, 0, 0, 0])
+        acc[0] += time.time() - t1
+        acc[1] += eng.metrics.decode_tokens - d0
+        acc[2] += eng.metrics.prefill_tokens - p0
+        acc[3] += 1
+
+    eng.step = step
+    dispatch.reset_counts()
+    _, wall, iters = serve_trace(eng, trace(), hooks)
+    # a re-prefilled request carries its earlier tokens in its prompt
+    got = {r.rid: list(r.prompt[len(prompts[r.rid]):]) + list(r.output)
+           for r in eng.finished}
+    counts = {k: dispatch.calls(k) for k in ("paged_attention",
+                                             "grouped_matmul")
+              + SWITCH_KERNELS}
+    n_staged = len(staged)
+    switch_exec.gather_pages_rows = inner_gather
+    ex.xw.commit = inner_commit
+    eng.step = inner_step
+    peak = torch.cuda.max_memory_allocated()
+    s = eng.metrics.summary()
+    check(len(got) == len(prompts) and all(
+        len(v) == 32 for v in got.values()),
+        f"elastic: finished {sorted(got)}")
+    check(s["rank_failures"] == 2 and s["recoveries"] == 2
+          and s["degraded_recoveries"] == 1 and not eng.sched.dead_pools,
+          f"elastic: failures and recoveries {s}")
+    check(s["cross_world_switches"] == 2 and s["switches"] == 2
+          and s["switch_aborts"] == 0 and str(eng.active) == "tp"
+          and eng.sched.G == G, f"elastic: switches {s}")
+    check(ex.rt.late_builds == 0, f"elastic: {ex.rt.late_builds} captures "
+                                  f"after warmup")
+    check(n_staged > 0 and counts["gather_pages_rows"] >= n_staged,
+          f"elastic: {n_staged} staging launches, counts {counts}")
+    for k in ("paged_attention", "grouped_matmul", "gather_pages_rows",
+              "scatter_pages_rows"):
+        results["launches"][k] = results["launches"].get(k, 0) + counts[k]
+    for a in eng.alloc:
+        a.check()
+    eng.clear_prefix_cache()
+    check(all(a.total_held() == 0 for a in eng.alloc),
+          "elastic: pages held after the run")
+    for what, hit, n_live, held0, held1 in fails:
+        print(f"elastic {what}: {len(hit)} of {n_live} live requests hit "
+              f"{hit} (= affected_by_pool_loss), pages held {held0} -> "
+              f"{held1}, allocators conserve", flush=True)
+    for t, steps, n, degr in eng.metrics.recovery_events:
+        print(f"elastic recovery: {n} requests re-prefilled in {steps} "
+              f"engine iterations{' (degraded pool revived)' if degr else ''}",
+              flush=True)
+    for what, rec, n_req, h2d in log:
+        print(f"elastic switch {what}: {rec.direction} chunks={rec.chunks} "
+              f"plan_s={rec.plan_s:.4f} pause_s={rec.pause_s:.4f} "
+              f"total_s={rec.total_s:.4f} host pack (weights_s)="
+              f"{rec.weights_s:.4f} KV staging (kv_s)={rec.kv_s:.4f} "
+              f"kv_pages={rec.kv_pages} delta_pages={rec.delta_pages} "
+              f"live={rec.live_requests}; host->device at commit {h2d} "
+              f"bytes ({h2d / 1e9:.2f} GB); store bit-equal to a fresh "
+              f"pack, K/V of {n_req} requests bit-equal to "
+              f"copy_kv_pages_host", flush=True)
+    for w, (secs, dec, pre, n) in sorted(world_time.items()):
+        print(f"elastic world {w}: {n} iterations in {secs:.3f} s, {dec} "
+              f"decode + {pre} prefill tokens -> {dec / secs:.2f} decode "
+              f"tok/s, {(dec + pre) / secs:.2f} tokens/s", flush=True)
+    wall -= sum(untimed)
+    print(f"elastic: {sum(map(len, got.values()))} tokens in {wall:.3f} s "
+          f"(checks left out) -> {sum(map(len, got.values())) / wall:.2f} "
+          f"tok/s over {iters} iterations; device peak {peak} bytes "
+          f"({peak / 2**30:.2f} GiB); kernel launches on the path {counts}, "
+          f"{n_staged} of them staging gathers", flush=True)
+
+    # #4 bit-equal to its plain version at every staging launch above
+    shapes = set()
+    for pool, idx, out in staged:
+        check(torch_equal(out, gather_pages_rows_ref(
+            pool if pool.dim() == 4 else pool[None], idx).reshape(out.shape)),
+            f"elastic: staging gather at {tuple(pool.shape)} differs from "
+            f"its plain version")
+        shapes.add((tuple(pool.shape), idx.numel()))
+    print(f"elastic: gather_pages_rows bit-equal to its plain version at "
+          f"all {n_staged} staging launches; (pool, padded index) shapes "
+          f"{sorted(shapes)}", flush=True)
+    del staged
+
+    # tokens: the prefix phase's margin rule, against the reference
+    def to_ep():
+        check(eng.execute_switch("ep"), "elastic: the idle tp->ep switch")
+
+    t0 = time.time()
+    margins = stream_margins(eng, trace(), {"reference": ref,
+                                            "elastic": got}, to_ep)
+    same, excl, first = greedy_agree(got, ref, margins["reference"],
+                                     "elastic")
+    own = own_stream(got, margins["elastic"], "elastic")
+    own_ref = own_stream(ref, margins["reference"], "elastic reference")
+    print(f"elastic tokens (teacher-forced in {time.time() - t0:.1f} s): "
+          f"against the reference {same} positions equal, {excl} excluded "
+          f"after {len(first)} first differences at unclear margins; along "
+          f"its own stream {len(own)} positions differ at unclear margins "
+          f"(the reference: {len(own_ref)})", flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # #1 and #2 at one world-2 (tp@2) shape each
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    a = attention_case(gen, G=2, B=8, Sq=1, H=32, K=2, kv_lo=64,
+                       kv_hi=2048)
+    got = paged_attention_cuda(a["q"], a["k_pool"], a["v_pool"],
+                               a["block_table"], a["kv_lens"],
+                               a["q_offset"], window=0)
+    e_row = row_rel_err(got, attention_plain(a))
+    check(e_row <= BF16_TOL, f"elastic: attention at tp@2 row error {e_row}")
+    x, w, cnt, _ = gmm_case(gen, E=2 * cfg.num_experts, C=8, D=cfg.d_model,
+                            W=cfg.d_expert)
+    e_abs, _, ok = max_errs(grouped_matmul_cuda(x, w, cnt),
+                            grouped_matmul_ref(x, w, cnt))
+    check(ok, f"elastic: grouped_matmul at tp@2 |err| {e_abs}")
+    print(f"elastic: at tp@2 shapes, attention (2 ranks x 8 x 32 heads, 2 "
+          f"KV heads a rank) row error {e_row:.3e}, grouped_matmul "
+          f"(E={2 * cfg.num_experts}, C=8, D={cfg.d_model}, "
+          f"W={cfg.d_expert}) max_abs_err {e_abs:.3e}: within bf16 "
+          f"tolerance", flush=True)
+    del a, got, x, w, cnt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the switch kernels at full-width shapes
 # ---------------------------------------------------------------------------
 
@@ -2350,7 +2857,8 @@ def main() -> int:
               ("switch_kernels", lambda: phase_switch_kernels(results)),
               ("graphs", lambda: phase_graphs(results)),
               ("policy", lambda: phase_policy(results)),
-              ("prefix", lambda: phase_prefix(results))]
+              ("prefix", lambda: phase_prefix(results)),
+              ("elastic", lambda: phase_elastic(results))]
     results: dict = {"launches": {}}
     t_run = time.time()
     for name, fn in phases:

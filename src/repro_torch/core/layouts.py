@@ -54,6 +54,26 @@ class LayoutSpec(str):
     def __repr__(self) -> str:
         return f"LayoutSpec({str.__repr__(self)})"
 
+    # -- world (device count) ----------------------------------------------
+    @property
+    def base_name(self) -> str:
+        """Registered name without the `@world` size suffix."""
+        return str(self).partition("@")[0]
+
+    @property
+    def base(self) -> "LayoutSpec":
+        """The registered unsized spec this layout derives from. Sized specs
+        are distinct str values ("tp@4" != "tp"), so code that compares
+        layouts against `TP`/`EP` must normalize through this first."""
+        return self if self.world is None else get_layout(self.base_name)
+
+    def sized(self, world: int | None) -> "LayoutSpec":
+        """This layout pinned to a device count: `TP.sized(4)` is `tp@4`;
+        `world=None` (or the spec's own world) returns the spec itself."""
+        if world is None or world == self.world:
+            return self
+        return get_layout(f"{self.base_name}@{int(world)}")
+
     # -- batch/slot geometry ------------------------------------------------
     @property
     def kv_per_rank(self) -> bool:
@@ -182,6 +202,10 @@ class GroupInfo:
         """TP KV replication factor == the paper's KV-capacity penalty."""
         return max(1, self.G // self.cfg_kv_heads)
 
+    def kv_block(self, rank: int) -> int:
+        """First KV head of `rank`'s slice under the pooled view."""
+        return (rank // self.kv_rep) * self.kv_local
+
 
 def group_info(cfg: ModelConfig, G: int) -> GroupInfo:
     return GroupInfo(G=G, cfg_heads=cfg.num_heads,
@@ -190,6 +214,17 @@ def group_info(cfg: ModelConfig, G: int) -> GroupInfo:
 
 def expert_layout(cfg: ModelConfig, G: int, layout: str) -> ExpertLayout:
     return make_expert_layout(cfg.num_experts, G, layout)
+
+
+def expert_store_shapes(cfg: ModelConfig, layout, G: int) -> dict:
+    """Shapes of the stacked rank-major expert store of `layout` on a
+    G-rank group: w13 (L, G, E_loc, 2I/tp, D), w2 (L, G, E_loc, D, I/tp).
+    Every (layout, G) holds the same elements, so one flat buffer serves
+    every resident layout and world as a view."""
+    lay = get_layout(layout).expert_layout(cfg, G)
+    L, E, I, D = cfg.num_layers, cfg.num_experts, cfg.d_expert, cfg.d_model
+    e_loc, i_loc = E // lay.ep, I // lay.tp_inner
+    return {"w13": (L, G, e_loc, 2 * i_loc, D), "w2": (L, G, e_loc, D, i_loc)}
 
 
 def padded_vocab(V: int, multiple: int = 256) -> int:

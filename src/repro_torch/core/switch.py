@@ -27,9 +27,13 @@ buffers, layer range by layer range:
      host page-pair descriptors (paper Fig. 8) and a gather (kernel) ->
      exchange -> scatter (kernel) over the unified buffer's two views.
 
-Not in this slice: `affected_by_pool_loss`, `plan_rank_shrink`,
-`plan_cross_world`, `copy_kv_pages_host` and `pack_experts_host` (faults
-and elastic worlds).
+Cross-world pairs (layouts on different device counts, DESIGN.md §13)
+have no common group for an exchange: `plan_cross_world` plans them as
+pool-indexed host-copy descriptors, `pack_experts_host` re-packs the
+destination's experts from the canonical host weights, and
+`copy_kv_pages_host` is the host oracle of the staged KV copy
+(core/switch_exec.CrossWorldSwitcher). A rank failure is the degenerate
+shrink (`plan_rank_shrink`).
 
 Request redistribution (host metadata, copied as is):
   EP->TP: global ordered list. TP->EP: deterministic longest-first greedy
@@ -52,8 +56,9 @@ from repro_torch.kernels.expert_reshard.ops import (interleave_shards,
 from repro_torch.kernels.kv_pack.ops import (gather_pages_rows,
                                              scatter_pages_rows)
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.moe import (ExpertLayout, pack_experts, pack_w13,
-                                    unpack_experts, unpack_w13)
+from repro_torch.models.moe import (ExpertLayout, make_expert_layout,
+                                    pack_experts, pack_w13, unpack_experts,
+                                    unpack_w13)
 from repro_torch.serving.kvcache import CacheConfig, PageAllocator
 from repro_torch.serving.paging import CacheMove, PrefixCache
 
@@ -362,6 +367,140 @@ def apply_assignments(assignments: list[Assignment]) -> None:
         a.req.pages = a.new_pages
         a.req.owner_rank = a.new_owner
         a.req.pool_rank = max(a.new_owner, 0)
+
+
+# ---------------------------------------------------------------------------
+# 3b'. Cross-world plans (ordered pairs with different device counts)
+# ---------------------------------------------------------------------------
+
+def affected_by_pool_loss(requests, data_group: int, rank: int,
+                          per_rank: bool) -> list:
+    """Requests whose KV touches pool `rank` of `data_group` — the cross-
+    world ownership rule: dropping a pool hits its owner's requests under a
+    per-rank view, or every request in the group under the pooled
+    head-sliced view (each page shards every head across the ranks)."""
+    hit = []
+    for r in requests:
+        if r.data_group != data_group:
+            continue
+        if per_rank and r.owner_rank != rank:
+            continue
+        hit.append(r)
+    return hit
+
+
+def plan_rank_shrink(requests, data_group: int, rank: int,
+                     per_rank: bool) -> list:
+    """Rank failure as a degenerate cross-world shrink: dst = src minus the
+    dead pool. The dead pool's memory is unrecoverable, so no pages move —
+    the plan *is* the requeue set (teacher-forced re-prefill is the
+    recovery mover). `distributed/elastic.py` routes through this."""
+    return affected_by_pool_loss(requests, data_group, rank, per_rank)
+
+
+def plan_cross_world(requests, cfg: ModelConfig, cc: CacheConfig,
+                     new_alloc: PageAllocator, src, dst,
+                     G_src: int, G_dst: int
+                     ) -> tuple[list[tuple], list[Assignment]]:
+    """Pure switch plan between layouts on DIFFERENT device counts.
+
+    Returns `(moves, assignments)`: `moves` is a flat list of
+    `(src_pool, src_page, dst_pool, dst_page)` copy descriptors. A
+    cross-world pair has no common group for an exchange, so its KV moves
+    are staged through the host and the plan stays pool-indexed instead of
+    the same-world (G, Pmax) arrays. Dedup/fork semantics match
+    `plan_switch`: one physical copy per (src page, dst pool); later
+    sharers fork the planned page. Prefix-cache entries do NOT ride along
+    — a cross-world commit starts with fresh caches.
+    """
+    dst_s = get_layout(dst)
+    moves: list[tuple[int, int, int, int]] = []
+    assignments: list[Assignment] = []
+    mapped: dict[tuple[int, int, int], int] = {}
+
+    def migrate_page(src_pool: int, page: int, dst_pool: int) -> int:
+        key = (src_pool, page, dst_pool)
+        dp = mapped.get(key)
+        if dp is not None:
+            new_alloc.fork(dst_pool, [dp])
+            return dp
+        dp = new_alloc.alloc(dst_pool, 1)[0]
+        mapped[key] = dp
+        moves.append((src_pool, page, dst_pool, dp))
+        return dp
+
+    if not dst_s.kv_per_rank:
+        for r in sorted(requests, key=lambda q: q.rid):
+            if not r.pages:
+                assignments.append(Assignment(r, [], -1, r.kv_len, ()))
+                continue
+            new_pages = [migrate_page(r.pool_rank, p, 0) for p in r.pages]
+            assignments.append(Assignment(r, new_pages, -1, r.kv_len,
+                                          tuple(r.pages)))
+    else:
+        # pageless requests partition too: a shrink may leave a stale
+        # owner_rank >= G_dst, so every request gets a valid dst owner
+        buckets = partition_requests(list(requests), G_dst)
+        for g, reqs in buckets.items():
+            for r in reqs:
+                new_pages = [migrate_page(r.pool_rank, p, g)
+                             for p in r.pages]
+                assignments.append(Assignment(r, new_pages, g, r.kv_len,
+                                              tuple(r.pages)))
+    return moves, assignments
+
+
+def copy_kv_pages_host(cfg: ModelConfig, cc: CacheConfig, src, dst,
+                       G_src: int, G_dst: int, src_host: torch.Tensor,
+                       dst_host: torch.Tensor, moves, lo: int,
+                       hi: int) -> None:
+    """Cross-world KV page copies for KV layers [lo, hi), page by page on
+    the host: the oracle of the staged mover
+    (`CrossWorldSwitcher._stage_kv_chunk`).
+
+    `src_host` / `dst_host` are ONE data group's flat per-rank buffers,
+    shape (G, NE), on the CPU — src a snapshot, dst the buffer this writes
+    into. Pages canonicalize through the full-head form: a per-rank (EP)
+    source page already holds all K heads; a pooled (TP) source page is
+    reassembled from its kv_rep representative ranks. Writes mirror the
+    reads: per-rank dst lands whole pages in the owner pool; pooled dst
+    lands each rank's `kv_block` head slice in every rank's view.
+    """
+    src_s, dst_s = get_layout(src), get_layout(dst)
+    gs, gd = group_info(cfg, G_src), group_info(cfg, G_dst)
+    sv = cc.view_shape(cfg, G_src, src_s)
+    dv = cc.view_shape(cfg, G_dst, dst_s)
+    src_views = [src_host[g].reshape(sv) for g in range(G_src)]
+    dst_views = [dst_host[g].view(dv) for g in range(G_dst)]
+    for spool, sp, dpool, dp in moves:
+        if src_s.kv_per_rank:
+            data = src_views[spool][lo:hi, :, sp]     # (Lc,2,page,K,dh)
+        else:
+            data = torch.cat([src_views[g][lo:hi, :, sp]
+                              for g in range(0, G_src, gs.kv_rep)], dim=3)
+        if dst_s.kv_per_rank:
+            dst_views[dpool][lo:hi, :, dp] = data
+        else:
+            for g in range(G_dst):
+                kb = gd.kv_block(g)
+                dst_views[g][lo:hi, :, dp] = data[..., kb:kb + gd.kv_local,
+                                                  :]
+
+
+def pack_experts_host(cfg: ModelConfig, moe_host: dict, dst, expert_G: int,
+                      lo: int, hi: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Re-pack canonical (L, E, ...) expert weights into `dst`'s rank-major
+    stored form on `expert_G` ranks for layers [lo, hi), on the host.
+
+    The cross-world weight mover: the executor keeps the canonical host
+    copy (experts are read-only in serving), so a chunk's destination
+    shard is a fresh pack — no exchange between worlds, no unpack."""
+    lay = make_expert_layout(cfg.num_experts, expert_G,
+                             get_layout(dst).expert_kind)
+    w13 = pack_w13(moe_host["w13"][lo:hi], lay, lead=1).contiguous()
+    w2 = pack_experts(moe_host["w2"][lo:hi], lay, width_axis=2,
+                      lead=1).contiguous()
+    return w13, w2
 
 
 def plan_ep_to_tp(requests, cfg: ModelConfig, cc: CacheConfig,

@@ -37,8 +37,13 @@ that repro closes with `jax.block_until_ready` end in
 `total_s` time the device work, not its launches. A chunk's weight and KV
 movers are timed the same way, so a chunked switch reports their sums.
 
-Not in this slice: `CrossWorldSession` / `CrossWorldSwitcher` (ROADMAP
-A10, elastic worlds).
+`CrossWorldSwitcher` drives switches between layouts on different device
+counts (DESIGN.md §13). No group spans both worlds, so it stages through
+pinned host buffers that the executor owns: expert chunks are re-packed
+from the canonical host copy, KV chunks leave the live source buffer by
+one `gather_pages_rows` launch per (source pool, destination pool) group,
+and the commit copies the staged store and KV buffer into the device
+buffers the destination's graphs were captured against.
 """
 from __future__ import annotations
 
@@ -48,16 +53,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.layouts import EP, TP, get_layout
+from repro_torch.core.layouts import EP, TP, get_layout, group_info
 from repro_torch.core.switch import (apply_assignments,
                                      expert_pair_dst_shapes,
                                      kv_migration_direction, make_migrate_kv,
                                      make_migrate_kv_chunk,
                                      make_migrate_kv_inplace,
-                                     pair_expert_layouts, pairs_to_plan,
+                                     pack_experts_host, pair_expert_layouts,
+                                     pairs_to_plan, plan_cross_world,
                                      plan_switch, reshard_experts_direct,
                                      reshard_experts_pair)
 from repro_torch.kernels.dispatch import require_device
+from repro_torch.kernels.kv_pack.ops import gather_pages_rows
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.moe import make_expert_layout
 from repro_torch.serving.kvcache import (CacheConfig, PageAllocator,
@@ -70,6 +77,22 @@ def _pow2_pad(n: int, lo: int = 8) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def _layer_chunks(cfg: ModelConfig, Lk: int, chunk_layers: int) -> list:
+    """Even [lo, hi) splits of the expert-stack and KV-layer ranges:
+    [(w_lo, w_hi, kv_lo, kv_hi)], `chunk_layers` layers a chunk."""
+    Lw = cfg.num_layers if cfg.is_moe else 0
+    Lref = max(Lw, Lk, 1)
+    n = max(1, -(-Lref // max(1, chunk_layers)))
+    return [(Lw * i // n, Lw * (i + 1) // n, Lk * i // n, Lk * (i + 1) // n)
+            for i in range(n)]
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device where one is timed (see module docstring)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 # Fixed plan width of the commit-time dirty-page delta pass; wider dirty
@@ -174,11 +197,6 @@ class SwitchExecutor:
                                device=experts[k].device)
                 for k, s in shapes.items()}
 
-    def _sync(self) -> None:
-        """Wait for the device where one is timed (see module docstring)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def _to_device(self, arrays) -> tuple:
         return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
 
@@ -276,7 +294,7 @@ class SwitchExecutor:
                 for li in range(self.cfg.num_layers):
                     self._reshard_layer_inplace(src, dst, experts, out, li)
             experts = dst_store
-            self._sync()
+            _sync(self.device)
         t_w = time.perf_counter() - t1
 
         t2 = time.perf_counter()
@@ -284,7 +302,7 @@ class SwitchExecutor:
             mk = make_migrate_kv if out is None else make_migrate_kv_inplace
             mfn = mk(self.cfg, self.cc, self.mesh, kv_dir, pmax)
             kv_flat = mfn(kv_flat, *self._to_device((sp, dp, vm)))
-            self._sync()
+            _sync(self.device)
         t_kv = time.perf_counter() - t2
 
         new_caches = caches
@@ -301,17 +319,6 @@ class SwitchExecutor:
     # ------------------------------------------------------------------
     # chunked / overlapped mode
     # ------------------------------------------------------------------
-    def _layer_chunks(self, chunk_layers: int) -> list:
-        """Even [lo, hi) splits of the expert-stack and KV-layer ranges."""
-        Lw = self.cfg.num_layers if self.cfg.is_moe else 0
-        Lref = max(Lw, self.Lk, 1)
-        n = max(1, -(-Lref // max(1, chunk_layers)))
-        out = []
-        for i in range(n):
-            out.append((Lw * i // n, Lw * (i + 1) // n,
-                        self.Lk * i // n, self.Lk * (i + 1) // n))
-        return out
-
     def start(self, src, dst, live, experts, kv_flat,
               chunk_layers: int, cur_alloc=None, caches=None, *,
               experts_dst: dict, kv_dst) -> SwitchSession:
@@ -336,7 +343,8 @@ class SwitchExecutor:
             src=src, dst=dst, direction=f"{src}_to_{dst}", kv_dir=kv_dir,
             t_start=t0, plan_arrays=self._to_device(plan_arrays),
             pmax=pmax, assignments=assignments,
-            new_alloc=new_alloc, chunks=self._layer_chunks(chunk_layers),
+            new_alloc=new_alloc,
+            chunks=_layer_chunks(self.cfg, self.Lk, chunk_layers),
             experts_dst=experts_dst, kv_dst=kv_dst,
             kv_pages=kv_pages, live_requests=len(live),
             plan_pause_s=time.perf_counter() - t0,
@@ -354,14 +362,14 @@ class SwitchExecutor:
         if self.cfg.is_moe and w_hi > w_lo:
             t = time.perf_counter()
             self._reshard(s.src, s.dst, experts, s.experts_dst, w_lo, w_hi)
-            self._sync()
+            _sync(self.device)
             s.weights_s += time.perf_counter() - t
         if s.kv_dst is not None and kv_hi > kv_lo:
             t = time.perf_counter()
             mfn = make_migrate_kv_chunk(self.cfg, self.cc, self.mesh,
                                         s.kv_dir, s.pmax, kv_lo, kv_hi)
             mfn(kv_flat, s.kv_dst, *s.plan_arrays)
-            self._sync()
+            _sync(self.device)
             s.kv_s += time.perf_counter() - t
         s.next_chunk += 1
         return not s.done
@@ -504,7 +512,7 @@ class SwitchExecutor:
             new_caches = [
                 PrefixCache.rebuild(s.new_alloc[d], s.alive_moves[d])
                 for d in range(self.Dd)]
-        self._sync()
+        _sync(self.device)
         now = time.perf_counter()
         # pause = the synchronous plan/staging phase in start() plus this
         # commit phase, measured as monolithic() measures its pause
@@ -519,3 +527,284 @@ class SwitchExecutor:
                s.new_alloc, new_caches, stats)
         self.session = None
         return out
+
+
+# ---------------------------------------------------------------------------
+# Cross-world switching (ordered pairs with DIFFERENT device counts)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class CrossWorldSession:
+    """State of one in-progress chunked cross-world switch."""
+    src: object                             # source LayoutSpec
+    dst: object                             # destination LayoutSpec
+    G_src: int
+    G_dst: int
+    direction: str                          # "<src>_to_<dst>" (stats label)
+    t_start: float
+    assignments: list                       # per data group lists merged
+    moves: list                             # per-d (spool,spage,dpool,dpage)
+    new_alloc: list                         # per-d PageAllocator @ G_dst
+    chunks: list                            # [(w_lo, w_hi, kv_lo, kv_hi)]
+    next_chunk: int = 0
+    experts_host: dict | None = None        # staged store, dst-world shapes
+    kv_host: torch.Tensor | None = None     # staged (Dd, G_dst, NE)
+    kv_pages: int = 0
+    live_requests: int = 0
+    plan_pause_s: float = 0.0
+    caches: object = None                   # engine's PrefixCaches (or None)
+    weights_s: float = 0.0                  # host packing of the chunks
+    kv_s: float = 0.0                       # KV staging of the chunks
+
+    @property
+    def done(self) -> bool:
+        return self.next_chunk >= len(self.chunks)
+
+
+class CrossWorldSwitcher:
+    """Drives live switches between layouts on DIFFERENT device counts.
+
+    No group spans both worlds, so no exchange can move the state; the
+    movers stage through the host instead: expert chunks are re-packed
+    from the executor's canonical host copy (experts are read-only in
+    serving, so the copy is never stale), and KV chunks pull the planned
+    pages out of the live source buffer (one `gather_pages_rows` launch per
+    (source pool, destination pool) group, only the moved pages cross to
+    the host) into a staged host buffer in the destination world's view.
+    The chunked pre-copy + commit-time dirty-page delta discipline is the
+    same as `SwitchExecutor`'s: decode keeps running on the intact source
+    between chunks, nothing on a request changes before commit, and
+    `abort()` just drops the session — the source device state was never
+    mutated, so dropping it *is* the rollback. At commit the staged store
+    and KV buffer are copied into the caller's destination buffers (the
+    ones the destination's graphs read). Prefix caches do not migrate: a
+    cross-world commit starts with fresh empty caches.
+    """
+
+    def __init__(self, cfg: ModelConfig, cc: CacheConfig, Dd: int,
+                 moe_host: dict | None, *, device):
+        self.cfg, self.cc, self.Dd = cfg, cc, Dd
+        self.moe_host = moe_host        # canonical {"w13": (L, E, ..)} host
+        self.device = require_device(device)
+        self.Lk = num_kv_layers(cfg)
+        self.session: CrossWorldSession | None = None
+
+    def start(self, src, dst, G_src: int, G_dst: int, live,
+              chunk_layers: int, caches=None, *, experts_host: dict,
+              kv_host: torch.Tensor) -> CrossWorldSession:
+        """Plan the cross-world switch into the staged host buffers
+        `experts_host` (the destination store's shapes) and `kv_host`
+        ((Dd, G_dst, NE), zeroed here). Source buffers and request metadata
+        stay live for overlap decode."""
+        if self.session is not None:
+            raise RuntimeError("cross-world switch already in progress")
+        src, dst = get_layout(src), get_layout(dst)
+        t0 = time.perf_counter()
+        new_alloc = [PageAllocator(self.cc, self.cfg, G_dst, dst)
+                     for _ in range(self.Dd)]
+        assignments, moves = [], []
+        for d in range(self.Dd):
+            reqs = [r for r in live if r.data_group == d]
+            mv, asg = plan_cross_world(reqs, self.cfg, self.cc, new_alloc[d],
+                                       src, dst, G_src, G_dst)
+            moves.append(mv)
+            assignments.extend(asg)
+        if self.Lk > 0:
+            kv_host.zero_()
+        self.session = CrossWorldSession(
+            src=src, dst=dst, G_src=G_src, G_dst=G_dst,
+            direction=f"{src}_to_{dst}", t_start=t0,
+            assignments=assignments, moves=moves, new_alloc=new_alloc,
+            chunks=_layer_chunks(self.cfg, self.Lk, chunk_layers),
+            experts_host=experts_host if self.cfg.is_moe else None,
+            kv_host=kv_host if self.Lk > 0 else None,
+            kv_pages=sum(len(m) for m in moves), live_requests=len(live),
+            plan_pause_s=time.perf_counter() - t0, caches=caches)
+        return self.session
+
+    def _index(self, pages: list) -> torch.Tensor:
+        """A pow2-padded int32 page index (padding reads the null page 0),
+        on the device; it goes up from pinned memory on a card."""
+        idx = torch.zeros(_pow2_pad(len(pages)), dtype=torch.int32)
+        idx[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
+        if self.device.type == "cuda":
+            return idx.pin_memory().to(self.device, non_blocking=True)
+        return idx
+
+    def _stage_kv_chunk(self, d: int, kv_flat, s: CrossWorldSession, moves,
+                        lo: int, hi: int) -> None:
+        """One data group's planned page copies for KV layers [lo, hi).
+
+        Planned pages are grouped per (source pool, destination pool) and
+        pulled out of the LIVE device buffer by one `gather_pages_rows`
+        launch per group, which reads the source pool's (Lc * 2, pages, M)
+        row view — every representative rank of a pooled source in the
+        same launch — so only the moved pages cross to the host. The block
+        then lands in the staged host buffer through the full-head form
+        (`copy_kv_pages_host` is the oracle): per-rank (EP) source pages
+        already hold all K heads; a pooled (TP) source page is reassembled
+        from its kv_rep representative ranks; per-rank dst lands whole
+        pages in the owner pool, pooled dst lands each rank's kv_block
+        slice in every rank's view."""
+        if not moves:
+            return
+        src_s, dst_s = s.src, s.dst
+        gs = group_info(self.cfg, s.G_src)
+        gd = group_info(self.cfg, s.G_dst)
+        sv = self.cc.view_shape(self.cfg, s.G_src, src_s)
+        dv = self.cc.view_shape(self.cfg, s.G_dst, dst_s)
+        L, _, pages, page, Ks, dh = sv
+        M, Lc = page * Ks * dh, hi - lo
+        dst_views = [s.kv_host[d, g].view(dv) for g in range(s.G_dst)]
+        groups: dict = {}
+        for spool, sp, dpool, dp in moves:
+            # pooled sides ignore their pool id (reads span the
+            # representative ranks; writes span every rank's view)
+            key = (spool if src_s.kv_per_rank else 0,
+                   dpool if dst_s.kv_per_rank else 0)
+            sps, dps = groups.setdefault(key, ([], []))
+            sps.append(sp)
+            dps.append(dp)
+        for (spool, dpool), (sps, dps) in groups.items():
+            n = len(sps)
+            idx = self._index(sps)
+            if src_s.kv_per_rank:
+                pool = kv_flat[d, spool].view(L * 2, pages, M)[2 * lo:2 * hi]
+                out = gather_pages_rows(pool, idx).cpu()[:, :n]
+                data = out.reshape(Lc, 2, n, page, Ks, dh)
+            else:
+                rows = kv_flat[d].view(s.G_src, L * 2, pages, M)
+                pool = rows[::gs.kv_rep, 2 * lo:2 * hi]
+                out = gather_pages_rows(pool, idx).cpu()[:, :, :n]
+                data = out.reshape(-1, Lc, 2, n, page, Ks, dh).movedim(
+                    0, 4).reshape(Lc, 2, n, page, -1, dh)
+            dparr = torch.tensor(dps, dtype=torch.long)
+            if dst_s.kv_per_rank:
+                dst_views[dpool][lo:hi, :, dparr] = data
+            else:
+                for g in range(s.G_dst):
+                    kb = gd.kv_block(g)
+                    dst_views[g][lo:hi, :, dparr] = \
+                        data[..., kb:kb + gd.kv_local, :]
+
+    def advance(self, kv_flat) -> bool:
+        """Stage the next layer chunk on the host (decode may keep running
+        on the source in between). Returns True while chunks remain."""
+        s = self.session
+        if s is None or s.done:
+            raise RuntimeError("no cross-world chunk left to advance")
+        w_lo, w_hi, kv_lo, kv_hi = s.chunks[s.next_chunk]
+        if s.experts_host is not None and w_hi > w_lo:
+            t = time.perf_counter()
+            eg = s.dst.expert_group(s.G_dst, self.Dd * s.G_dst)
+            # a layer at a time: beside the staged store only one layer's
+            # packed temporary is alive
+            for li in range(w_lo, w_hi):
+                w13, w2 = pack_experts_host(self.cfg, self.moe_host, s.dst,
+                                            eg, li, li + 1)
+                s.experts_host["w13"][li:li + 1].copy_(w13)
+                s.experts_host["w2"][li:li + 1].copy_(w2)
+                del w13, w2
+            s.weights_s += time.perf_counter() - t
+        if s.kv_host is not None and kv_hi > kv_lo:
+            t = time.perf_counter()
+            for d in range(self.Dd):
+                self._stage_kv_chunk(d, kv_flat, s, s.moves[d], kv_lo, kv_hi)
+            s.kv_s += time.perf_counter() - t
+        s.next_chunk += 1
+        return not s.done
+
+    def abort(self) -> SwitchStats:
+        """Abandon the in-flight session: the staged host buffers are left
+        to the next switch and every planned destination page dies with the
+        session's fresh allocators — the source world was never touched."""
+        s = self.session
+        if s is None:
+            raise RuntimeError("no cross-world switch in progress")
+        self.session = None
+        return SwitchStats(direction=s.direction,
+                           total_s=time.perf_counter() - s.t_start,
+                           plan_s=s.plan_pause_s, weights_s=s.weights_s,
+                           kv_s=s.kv_s, kv_pages=s.kv_pages,
+                           chunks=s.next_chunk,
+                           live_requests=s.live_requests)
+
+    def _delta_moves(self, live_ids) -> tuple:
+        """Commit-time dirty-page moves per data group: pages decode wrote
+        after the plan snapshot, plus pages allocated during the window
+        (destination pages topped up here). CoW semantics mirror
+        `SwitchExecutor._delta_pairs`."""
+        s = self.session
+        page = self.cc.page_size
+        per = [[] for _ in range(self.Dd)]
+        n = 0
+        for a in s.assignments:
+            r = a.req
+            if r.rid not in live_ids or not r.pages:
+                continue
+            if (r.kv_len == a.snap_kv_len
+                    and len(a.new_pages) >= len(r.pages)
+                    and list(a.snap_pages) == r.pages):
+                continue
+            d = r.data_group
+            dst_pool = max(a.new_owner, 0)
+            while len(a.new_pages) < len(r.pages):
+                a.new_pages.append(s.new_alloc[d].alloc(dst_pool, 1)[0])
+            lo_idx = max(a.snap_kv_len - 1, 0) // page
+            hi_idx = min(len(r.pages) - 1, max(r.kv_len - 1, 0) // page)
+            for i in range(lo_idx, hi_idx + 1):
+                cowed = (i < len(a.snap_pages)
+                         and r.pages[i] != a.snap_pages[i])
+                if cowed and s.new_alloc[d].refcount(
+                        dst_pool, a.new_pages[i]) > 1:
+                    s.new_alloc[d].release(dst_pool, [a.new_pages[i]])
+                    a.new_pages[i] = s.new_alloc[d].alloc(dst_pool, 1)[0]
+                per[d].append((r.pool_rank, r.pages[i], dst_pool,
+                               a.new_pages[i]))
+                n += 1
+        return per, n
+
+    def commit(self, live, kv_flat, *, experts_out: dict | None, kv_out):
+        """Pause phase: stage the dirty pages, apply the planned metadata,
+        then copy the staged store into `experts_out` and the staged KV
+        buffer into `kv_out` (the destination world's device buffers, at
+        the addresses its graphs read). Returns (alloc', caches', stats)."""
+        s = self.session
+        if s is None or not s.done:
+            raise RuntimeError("commit needs a switch with every chunk staged")
+        t_pause0 = time.perf_counter()
+        live_ids = {r.rid for r in live}
+        for a in s.assignments:
+            if a.req.rid not in live_ids and a.new_pages:
+                s.new_alloc[a.req.data_group].release(
+                    max(a.new_owner, 0), a.new_pages)
+        delta_pages = 0
+        if s.kv_host is not None:
+            per, delta_pages = self._delta_moves(live_ids)
+            if delta_pages:
+                for d in range(self.Dd):
+                    self._stage_kv_chunk(d, kv_flat, s, per[d], 0, self.Lk)
+        apply_assignments([a for a in s.assignments
+                           if a.req.rid in live_ids])
+        # the source is read for the last time above: the destination may
+        # now overwrite its bytes (the buffers are shared across worlds)
+        _sync(self.device)
+        if s.experts_host is not None:
+            for k, v in s.experts_host.items():
+                experts_out[k].copy_(v, non_blocking=True)
+        if s.kv_host is not None:
+            kv_out.copy_(s.kv_host, non_blocking=True)
+        _sync(self.device)
+        new_caches = s.caches
+        if s.caches is not None:
+            new_caches = [PrefixCache(s.new_alloc[d])
+                          for d in range(self.Dd)]
+        now = time.perf_counter()
+        stats = SwitchStats(
+            direction=s.direction, total_s=now - s.t_start,
+            pause_s=s.plan_pause_s + (now - t_pause0),
+            plan_s=s.plan_pause_s, weights_s=s.weights_s, kv_s=s.kv_s,
+            kv_pages=s.kv_pages, delta_pages=delta_pages,
+            chunks=len(s.chunks), live_requests=s.live_requests)
+        self.session = None
+        return s.new_alloc, new_caches, stats

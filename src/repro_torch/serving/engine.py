@@ -32,18 +32,27 @@ the interactive class's attainment (DESIGN.md §11), and a scripted
 boundary of a chunked switch (DESIGN.md §12). Switches carry the live
 prefix caches across and take the remapped ones back.
 
-Not in this slice: `rank_fail` faults (a plan holding one raises
-`NotImplementedError`: they need elastic world size and degraded mode),
-cross-world (`@world`) and full-mesh (`tpep`) layouts, the streaming
-frontend and the HTTP server.
+World size is a layout dimension (DESIGN.md §13): a sized layout
+(`"tp@2"`) serves on the first w of the G stacked ranks, and a switch
+between worlds (shrink or grow, alone or with a layout change) runs live
+like any other, staged through the host; a shrink first preempts the
+requests the smaller world's pages cannot hold. A `rank_fail` fault
+(`distributed/elastic.fail_rank`) aborts an in-flight switch, requeues
+the requests whose KV touched the rank for a teacher-forced re-prefill,
+and under a per-rank view keeps the rank's pool out of placement until
+they have re-prefilled (degraded mode; `_check_recoveries`).
+
+Not in this slice: the full-mesh `tpep` layout (raises
+`NotImplementedError`), the streaming frontend and the HTTP server.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
 
-from repro_torch.core.layouts import EP, TP, LayoutSpec, get_layout
+from repro_torch.core.layouts import EP, TP, LayoutSpec, get_layout, world_of
 from repro_torch.core.policy import PolicyConfig, SwitchCoordinator
+from repro_torch.distributed.elastic import fail_rank
 from repro_torch.kernels.dispatch import require_device
 from repro_torch.models.common import ModelConfig
 from repro_torch.serving.executor import Executor
@@ -109,7 +118,6 @@ class EngineConfig:
     # FaultInjector / iterable of Faults scripted against the virtual
     # clock. None = no chaos. The engine polls it at the top of every
     # iteration and at every chunk boundary of a chunked switch.
-    # `rank_fail` is not ported: a plan holding one raises.
     faults: object = None
     policy: PolicyConfig = field(default_factory=PolicyConfig)
     seed: int = 0
@@ -151,10 +159,9 @@ class MoebiusEngine:
         if start not in self.layouts:
             self.layouts = self.layouts + (start,)
         for spec in self.layouts:
-            if spec.world is not None or spec.expert_full_mesh:
+            if spec.expert_full_mesh:
                 raise NotImplementedError(
-                    f"layout {spec!r}: sized and full-mesh layouts are not "
-                    "ported yet")
+                    f"layout {spec!r}: full-mesh layouts are not ported yet")
         self.metrics = ServeMetrics()
         self.switch_records: list[SwitchRecord] = []
         self._step_i = 0
@@ -165,16 +172,14 @@ class MoebiusEngine:
         # fault injection (DESIGN.md §12)
         self._faults = (None if self.ecfg.faults is None
                         else FaultInjector(self.ecfg.faults))
-        if self._faults is not None and any(
-                f.kind == "rank_fail" for f in self._faults.plan):
-            raise NotImplementedError(
-                "rank_fail faults need elastic world size and degraded "
-                "mode, which are not ported yet")
         self._holds: list = []         # live pool_exhaust page seizures
+        self._recoveries: list = []    # in-progress rank-failure recoveries
         self.ex = Executor(cfg, mesh, cc, self.ecfg, self.layouts, start,
                            params_global=params_global, metrics=self.metrics,
                            device=self.device)
-        alloc = [PageAllocator(cc, cfg, self.G, start)
+        # allocators live at the START layout's world (a sized start like
+        # "tp@2" begins on the first ranks)
+        alloc = [PageAllocator(cc, cfg, world_of(start, self.G), start)
                  for _ in range(self.Dd)]
         # prefix cache: one index per data group over that group's allocator
         prefix = ([PrefixCache(alloc[d]) for d in range(self.Dd)]
@@ -187,7 +192,7 @@ class MoebiusEngine:
                                alloc=alloc, prefix=prefix, spec=start,
                                clock=self.now, metrics=self.metrics,
                                qos=qos)
-        self.sched.set_layout(start)
+        self.sched.set_layout(start)   # syncs sched.G with start's world
         self.sched.clear_slot = self.ex.clear_slot
         self.ex.on_finish = self.sched.finish_request
         # the policy runs on the engine's (virtual) clock and observes the
@@ -387,17 +392,29 @@ class MoebiusEngine:
         chunk with decode steps interleaved (still on the intact source
         layout), then pauses only for the dirty-page delta + commit
         (DESIGN.md §4.3); it aborts at a chunk boundary on a scripted
-        `chunk_fail` or when the policy reverses (the scorer now prefers
-        the source), and then returns False with the source layout live.
-        True when the switch committed. The live prefix caches are
-        remapped with the pages they index."""
+        `chunk_fail` or `rank_fail` or when the policy reverses (the
+        scorer now prefers the source), and then returns False with the
+        source layout live. True when the switch committed. The live
+        prefix caches are remapped with the pages they index; a switch
+        between worlds starts fresh ones, after preempting the requests
+        whose pages a smaller world cannot hold."""
         target = get_layout(target)
         if target is self.active:
             raise ValueError(f"switch target {target!r} is the active layout")
         if target not in self.layouts:
             raise ValueError(f"layout {target!r} is not resident "
                              f"(EngineConfig.layouts)")
+        cross_world = self.ex._is_cross_world(target)
         self.ex.drain_decode()
+        if cross_world:
+            # shrink feasibility gate, BEFORE any planning: the destination
+            # world's page pool must hold every live request's pages.
+            # Overflow holders are preempted through the normal requeue
+            # protocol (teacher-forced re-prefill) — never dropped.
+            cap_pages = PageAllocator(self.cc, self.cfg,
+                                      self.ex._world(target),
+                                      target).total_free()
+            self.sched.ensure_shrink_feasible(cap_pages)
         if self.ecfg.chunk_layers > 0:
             rec = self._execute_switch_chunked(target)
             if rec is None:                # aborted; source layout live
@@ -416,6 +433,8 @@ class MoebiusEngine:
                 plan_width=st.plan_width)
         self.switch_records.append(rec)
         self.metrics.switch(rec.t, rec.direction, rec.pause_s, rec.total_s)
+        if cross_world:
+            self.metrics.cross_world_switches += 1
         # sync the coordinator with the engine's real layout (a direct
         # execute_switch bypasses observe) and reset its abort backoff
         self.coord.switch_completed(self.active)
@@ -428,7 +447,7 @@ class MoebiusEngine:
         owners and allocator. Returns its SwitchRecord, or None when the
         attempt was abandoned at a chunk boundary (a scripted chunk_fail
         or a policy reversal; the abort already recorded its metrics and
-        backoff)."""
+        backoff; or a scripted rank_fail, whose recovery aborts it)."""
         inj = self._faults
         if inj is not None:
             inj.begin_switch()
@@ -436,7 +455,7 @@ class MoebiusEngine:
         sess = self.ex.switch_start(target, self.sched.live(),
                                     self.ecfg.chunk_layers, self.sched.alloc,
                                     self.sched.prefix)
-        abort_reason = None
+        abort_reason, rank_fault = None, None
         while not sess.done:
             self.ex.switch_advance()
             self._step_i += 1
@@ -453,6 +472,12 @@ class MoebiusEngine:
                     elif f.kind == "chunk_fail":
                         self.metrics.faults_injected += 1
                         abort_reason = f"chunk {boundary} failed"
+                    elif f.kind == "rank_fail":
+                        # applied after the break: fail_rank itself aborts
+                        # the session before it requeues the rank's work
+                        abort_reason = (f"rank {f.rank} failed at "
+                                        f"chunk {boundary}")
+                        rank_fault = f
                     elif f.kind != "switch":   # no nested switches
                         self._apply_fault(f)
                 if abort_reason is not None:
@@ -466,7 +491,10 @@ class MoebiusEngine:
                 break
         if abort_reason is not None:
             self.ex.drain_decode()
-            self.abort_switch(abort_reason)
+            if rank_fault is not None:
+                self._apply_fault(rank_fault)
+            else:
+                self.abort_switch(abort_reason)
             return None
         # drain to a step boundary so the commit-time dirty-page delta sees
         # every KV write the overlap window produced
@@ -513,11 +541,68 @@ class MoebiusEngine:
             self.metrics.client_disconnects += 1
         return True
 
+    def layouts_summary(self) -> dict:
+        """The resident layouts with their worlds, the active layout,
+        degraded pools, and switch/backoff state (repro's GET /v1/layouts
+        payload)."""
+        return {
+            "active": str(self.active),
+            "world": self.ex._world(self.active),
+            "launch_world": self.G,
+            "layouts": [{"name": str(lo), "world": self.ex._world(lo),
+                         "active": lo is self.active}
+                        for lo in self.layouts],
+            "dead_pools": sorted(self.sched.dead_pools),
+            "switch_in_progress": self.switch_in_progress(),
+            "switches": len(self.metrics.switch_events),
+            "switch_aborts": len(self.metrics.switch_abort_events),
+            "cooldown_backoff": self.coord.backoff_mult,
+        }
+
+    def note_rank_failure(self, data_group: int, rank: int, hit: list,
+                          degraded: bool) -> None:
+        """Called by `fail_rank` after it requeued the hit requests: record
+        the failure and track its recovery — complete when every hit
+        request has re-prefilled (left waiting/prefilling). A `degraded`
+        (per-rank) failure keeps the pool out of placement until then."""
+        now = self.now()
+        self.metrics.rank_failure(now, data_group, rank, len(hit))
+        if not hit:
+            # nothing to re-prefill: recovery is instantaneous
+            self.metrics.recovery(now, 0, 0, degraded)
+            if degraded:
+                self.sched.revive_pool(data_group, rank)
+            return
+        self._recoveries.append({
+            "rids": {r.rid for r in hit}, "d": data_group, "rank": rank,
+            "start_step": self._step_i, "degraded": degraded})
+
+    def _check_recoveries(self) -> None:
+        """A recovery completes when none of its requests is still queued
+        for (re-)prefill — each is running again or finished. Revives the
+        dead pool of a degraded (per-rank) failure."""
+        if not self._recoveries:
+            return
+        queued = {r.rid for r in (self.sched.waiting + self.sched.prefilling
+                                  + list(self.sched.pending))}
+        still = []
+        for rec in self._recoveries:
+            if rec["rids"] & queued:
+                still.append(rec)
+                continue
+            self.metrics.recovery(self.now(),
+                                  self._step_i - rec["start_step"],
+                                  len(rec["rids"]), rec["degraded"])
+            if rec["degraded"]:
+                self.sched.revive_pool(rec["d"], rec["rank"])
+        self._recoveries = still
+
     def _apply_fault(self, f) -> None:
-        """Act on one fired Fault (see serving/faults.py for the kinds;
-        `rank_fail` never reaches here, the constructor refuses it)."""
+        """Act on one fired Fault (see serving/faults.py for the kinds)."""
         self.metrics.faults_injected += 1
-        if f.kind == "pool_exhaust":
+        if f.kind == "rank_fail":
+            fail_rank(self, f.data_group, f.rank)
+        elif f.kind == "pool_exhaust":
             self.metrics.pool_exhaust_events += 1
             alloc = self.sched.alloc[f.data_group]
             n = alloc.free_pages(f.pool)
@@ -598,6 +683,7 @@ class MoebiusEngine:
             self._run_prefill()
             self._decode_step()
         self._charge_dispatches()
+        self._check_recoveries()
         self.metrics.pages_resident(sum(a.total_held()
                                         for a in self.sched.alloc))
         self.metrics.sample_mode(self.now(), self.active,

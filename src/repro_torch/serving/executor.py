@@ -36,20 +36,31 @@ emitted them; a fork that swaps a running request's block-table entry
 reaches the fused loop's device state through its delta rows
 (`Scheduler.plan_fused` reports it as a grow).
 
-Not in this slice: the graphed prefill-chunk step and cross-world
-switches.
+World is a layout dimension (DESIGN.md §13): a sized layout (`"tp@2"`)
+runs on the first w of the G stacked ranks, with its control-plane pack
+built at its world, the one flat expert store viewed in its world's
+rank-major shape (the element count is the same in every world), and
+the KV buffer's contiguous prefix viewed as (Dd, w, NE). Its graphs are
+captured against those views at warmup like every other layout's. A
+switch between worlds (`CrossWorldSwitcher`) stages through pinned host
+buffers and a canonical host copy of the experts, both kept only while
+layouts of more than one world are resident, and its commit copies the
+staged destination into the same flat store and KV buffer, so the
+destination's graphs find it where they were captured.
+
+Not in this slice: the graphed prefill-chunk step.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.layouts import (LayoutSpec, get_layout, pack_params,
-                                      pad_vocab_tables, padded_vocab)
+from repro_torch.core.layouts import (LayoutSpec, expert_store_shapes,
+                                      get_layout, pack_params,
+                                      pad_vocab_tables, padded_vocab,
+                                      world_of)
 from repro_torch.core.residency import ResidentRuntime
-from repro_torch.core.switch import (expert_pair_dst_shapes,
-                                     pair_expert_layouts)
-from repro_torch.core.switch_exec import SwitchExecutor
+from repro_torch.core.switch_exec import CrossWorldSwitcher, SwitchExecutor
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import init_params
 from repro_torch.serving.device_state import DeviceDecodeState, Staged
@@ -111,6 +122,13 @@ class Executor:
         self.active = get_layout(active)
         self.metrics = metrics if metrics is not None else ServeMetrics()
         self.prefill_chunk = ecfg.prefill_chunk
+        # world (device count) is a layout dimension: a sized layout runs on
+        # the first w of the G stacked ranks
+        self.worlds = {spec: world_of(spec, self.G) for spec in self.layouts}
+        for spec, w in self.worlds.items():
+            if w > self.G:
+                raise ValueError(f"layout {str(spec)!r} wants world {w} > "
+                                 f"launch world {self.G}")
         if params_global is None:
             params_global = init_params(cfg, ecfg.seed, device=device)
         # one padded copy of the vocab tables, shared by every layout's pack
@@ -122,6 +140,14 @@ class Executor:
         # built from a tree without expert weights: packing them and then
         # dropping them would hold a second full expert copy meanwhile.
         moe_g = params_global["layers"]["moe"]
+        # canonical unpacked experts on the host, for the cross-world
+        # movers (a fresh pack of the destination per chunk); nothing else
+        # reads them, so they are kept only while layouts of more than one
+        # world are resident
+        self._moe_host = None
+        if len(set(self.worlds.values())) > 1:
+            self._moe_host = {k: moe_g[k].to("cpu", copy=True)
+                              for k in _EXPERTS}
         bare = dict(params_global)
         bare["layers"] = dict(params_global["layers"])
         bare["layers"]["moe"] = {k: v for k, v in moe_g.items()
@@ -130,22 +156,18 @@ class Executor:
         store, shapes = {}, {}
         for spec in self.layouts:
             src = params_global if spec is self.active else bare
-            pk = build_decode_pack(cfg, pack_params(cfg, src, spec, self.G),
-                                   spec, self.G)
+            w = self.worlds[spec]
+            pk = build_decode_pack(cfg, pack_params(cfg, src, spec, w),
+                                   spec, w)
             if spec is self.active:
                 moe = pk["layers"]["moe"]
                 for k in _EXPERTS:
-                    w = moe.pop(k)
-                    shapes[k] = tuple(w.shape)
-                    store[k] = _own_flat(w, moe_g[k])
+                    store[k] = _own_flat(moe.pop(k), moe_g[k])
             self.packs[spec] = pk
-        # every layout's view of the one store (same elements, its order)
-        meta = {k: torch.empty(s, device="meta") for k, s in shapes.items()}
-        self._shapes = {spec: (shapes if spec is self.active else
-                               expert_pair_dst_shapes(
-                                   cfg, *pair_expert_layouts(
-                                       cfg, self.active, spec, self.G), meta))
-                        for spec in self.layouts}
+        # every layout's view of the one store (same elements, its order,
+        # at its world)
+        self._shapes = {spec: expert_store_shapes(cfg, spec, w)
+                        for spec, w in self.worlds.items()}
         self._pack_cache: dict = {}        # assembled packs, per layout/bank
 
         # the data plane at fixed addresses: bank 0 holds the store and the
@@ -156,8 +178,12 @@ class Executor:
         self._kvs = [torch.zeros((self.Dd, self.G, self.NE),
                                  dtype=cfg.param_dtype, device=device)]
         self._bank = 0
+        # the cross-world movers' pinned host staging (store + KV buffer),
+        # allocated once, by warmup() or the first cross-world switch
+        self._xstage: dict | None = None
+        wmin = min(self.worlds.values())
         self.ladder = tuple(b for b in ecfg.ladder
-                            if b % self.G == 0 or b >= self.G) or (self.G,)
+                            if b % wmin == 0 or b >= wmin) or (wmin,)
         self.rt = ResidentRuntime(torch.device(device), graphs=ecfg.graphs)
         self._fns: dict = {}               # built step functions
         self._stages: dict = {}            # (B, Sq) -> _StepStage
@@ -170,11 +196,37 @@ class Executor:
         self._pending: tuple | None = None
         self._out_bufs: dict = {}
         self._out_flip = 0
-        self.switcher = SwitchExecutor(
-            cfg, cc, mesh, direct_reshard=ecfg.direct_reshard, device=device)
+        # same-world switch executors, one per world; the cross-world
+        # switcher stages through the host (no group spans both worlds)
+        self._switchers: dict[int, SwitchExecutor] = {}
+        self.xw = CrossWorldSwitcher(cfg, cc, self.Dd, self._moe_host,
+                                     device=device)
         # completion sink for fused-pipeline retirements (the engine wires
         # this to Scheduler.finish_request)
         self.on_finish = lambda r: None
+
+    # ------------------------------------------------------------------
+    # world geometry (device count as a layout dimension)
+    # ------------------------------------------------------------------
+    def _world(self, layout) -> int:
+        return world_of(layout, self.G)
+
+    def _is_cross_world(self, target) -> bool:
+        return self._world(target) != self._world(self.active)
+
+    def _switcher_for(self, w: int) -> SwitchExecutor:
+        sw = self._switchers.get(w)
+        if sw is None:
+            sw = SwitchExecutor(self.cfg, self.cc, (self.Dd, w),
+                                direct_reshard=self.ecfg.direct_reshard,
+                                device=self.device)
+            self._switchers[w] = sw
+        return sw
+
+    @property
+    def switcher(self) -> SwitchExecutor:
+        """Same-world switch executor of the ACTIVE layout's world."""
+        return self._switcher_for(self._world(self.active))
 
     # ------------------------------------------------------------------
     # the data plane (banks of fixed-address buffers)
@@ -183,6 +235,16 @@ class Executor:
         return {k: self._stores[bank][k].view(self._shapes[layout][k])
                 for k in _EXPERTS}
 
+    def _kv(self, layout: LayoutSpec, bank: int | None = None
+            ) -> torch.Tensor:
+        """The bank's KV buffer at `layout`'s world w: the contiguous
+        prefix of the flat buffer viewed as (Dd, w, NE) (the whole buffer
+        when w == G)."""
+        bank = self._bank if bank is None else bank
+        w = self._world(layout)
+        return self._kvs[bank].view(-1)[:self.Dd * w * self.NE].view(
+            self.Dd, w, self.NE)
+
     @property
     def _experts(self) -> dict:
         """The resident expert store, viewed in the active layout."""
@@ -190,11 +252,39 @@ class Executor:
 
     @property
     def kv_flat(self) -> torch.Tensor:
-        return self._kvs[self._bank]
+        """The active bank's KV buffer at the active layout's world."""
+        return self._kv(self.active)
+
+    def _cross_stage(self) -> dict:
+        """The cross-world movers' staging: one host copy of the flat store
+        and of the KV buffer, pinned on a card (the commit copies them up
+        without a synchronisation per tensor); allocated once."""
+        if self._xstage is None:
+            pin = self.device.type == "cuda"
+            st = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=pin)
+                  for k, v in self._stores[0].items()}
+            st["kv"] = torch.empty(self._kvs[0].numel(),
+                                   dtype=self._kvs[0].dtype, pin_memory=pin)
+            self._xstage = st
+        return self._xstage
+
+    def host_bytes(self) -> dict:
+        """Host bytes the cross-world movers hold: the canonical expert
+        copy and the staging (0 until they exist)."""
+        def nbytes(ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+        return {"canonical": nbytes((self._moe_host or {}).values()),
+                "staging": nbytes((self._xstage or {}).values())}
 
     @property
     def banks(self) -> int:
         return len(self._stores)
+
+    def _same_world_pairs(self) -> bool:
+        """Whether two resident layouts share a world (a same-world switch,
+        and so a chunked one's second bank, is possible)."""
+        ws = list(self.worlds.values())
+        return len(set(ws)) < len(ws)
 
     def _ensure_second_bank(self) -> None:
         """Allocate the chunked switch's destination store and KV buffer
@@ -232,7 +322,8 @@ class Executor:
     # step functions: resident (graphs) for the decode kinds
     # ------------------------------------------------------------------
     def ladder_for(self, layout: LayoutSpec) -> tuple:
-        return get_layout(layout).decode_ladder(self.ladder, self.G)
+        spec = get_layout(layout)
+        return spec.decode_ladder(self.ladder, self._world(spec))
 
     def _stage(self, B: int, Sq: int) -> _StepStage:
         st = self._stages.get((B, Sq))
@@ -246,8 +337,8 @@ class Executor:
         key = (layout, B, Sq)
         fn = self._fns.get(key)
         if fn is None:
-            fn = build_mixed_step(self.cfg, (self.Dd, self.G), layout,
-                                  self.cc, B, Sq=Sq,
+            fn = build_mixed_step(self.cfg, (self.Dd, self._world(layout)),
+                                  layout, self.cc, B, Sq=Sq,
                                   temperature=self.ecfg.temperature,
                                   device=self.device)
             self._fns[key] = fn
@@ -263,7 +354,7 @@ class Executor:
 
         def build():
             step = self._step_fn(layout, B, Sq)
-            pk, kv = self._assemble_pack(layout, bank), self._kvs[bank]
+            pk, kv = self._assemble_pack(layout, bank), self._kv(layout, bank)
             ins, key = self._stage(B, Sq).dev, self._key.dev[0]
             return lambda: step(pk, kv, *ins, key)[0]
 
@@ -287,11 +378,12 @@ class Executor:
         bank = self._bank if bank is None else bank
 
         def build():
-            loop = build_decode_loop(self.cfg, (self.Dd, self.G), layout,
+            loop = build_decode_loop(self.cfg,
+                                     (self.Dd, self._world(layout)), layout,
                                      self.cc, B, N,
                                      temperature=self.ecfg.temperature,
                                      device=self.device)
-            pk, kv = self._assemble_pack(layout, bank), self._kvs[bank]
+            pk, kv = self._assemble_pack(layout, bank), self._kv(layout, bank)
             st, key = self._dstate_for(B), self._key.dev[0]
 
             state = (st.tokens, st.positions, st.budgets)
@@ -319,17 +411,21 @@ class Executor:
     def warmup(self) -> None:
         """Make every resident layout's runtime at startup (paper §4.4):
         capture, on a card, the single decode step and (decode_steps > 1)
-        the fused loop of every batch rung, for every bank — with
-        `chunk_layers > 0` the chunked switch's second store and KV buffer
-        are allocated here and their graphs captured too. Each capture
-        first runs its step once on the static inputs, which hold no
-        request (the active layout's run is the "runs once" of repro's
-        warmup). With the prefix cache on, a null self-copy of page 0 per
-        layout and bank loads the page mover's kernels here, as repro
-        compiles its copier. Every later build counts in
+        the fused loop of every batch rung, for every bank, each layout at
+        its own world — with `chunk_layers > 0` and two resident layouts
+        of one world the chunked switch's second store and KV buffer are
+        allocated here and their graphs captured too; with layouts of
+        several worlds resident the cross-world staging is allocated here.
+        Each capture first runs its step once on the static inputs, which
+        hold no request (the active layout's run is the "runs once" of
+        repro's warmup). With the prefix cache on, a null self-copy of page
+        0 per layout and bank loads the page mover's kernels here, as
+        repro compiles its copier. Every later build counts in
         `rt.late_builds`."""
-        if self.ecfg.chunk_layers > 0 and len(self.layouts) > 1:
+        if self.ecfg.chunk_layers > 0 and self._same_world_pairs():
             self._ensure_second_bank()
+        if self._moe_host is not None:
+            self._cross_stage()
         N = self.ecfg.decode_steps
         for bank in range(self.banks):
             for lo in self.layouts:
@@ -338,8 +434,8 @@ class Executor:
                     if N > 1:
                         self._decode_loop_fn(lo, b, N, bank)
                 if self.ecfg.prefix_cache:
-                    copy_pages(self._kvs[bank][0], self.cfg, self.cc, lo, 0,
-                               [(0, 0)])
+                    copy_pages(self._kv(lo, bank)[0], self.cfg, self.cc, lo,
+                               0, [(0, 0)])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.rt.mark_warm()
@@ -407,7 +503,8 @@ class Executor:
         Scheduler.select_prefill_rows) as a prefill-only MixedPlan."""
         rows = tuple(MixedRow(r, d, row, r.prefill_pos, n, "prefill")
                      for r, d, row, n in picked)
-        plan = MixedPlan(B=self.active.prefill_width(self.G),
+        plan = MixedPlan(B=self.active.prefill_width(
+                             self._world(self.active)),
                          Sq=self.prefill_chunk, rows=rows,
                          prefill_tokens=sum(n for *_, n in picked))
         return self.run_mixed(plan, step_i)
@@ -551,7 +648,9 @@ class Executor:
     # switch execution (device side; the engine facade orchestrates)
     # ------------------------------------------------------------------
     def switch_in_progress(self) -> bool:
-        return self.switcher.session is not None
+        return (self.xw.session is not None
+                or any(sw.session is not None
+                       for sw in self._switchers.values()))
 
     def _post_switch(self, target: LayoutSpec) -> None:
         # the layout changed: the device decode state is rebuilt on the
@@ -559,12 +658,45 @@ class Executor:
         self.active = target
         self._dstate = None
 
+    def _cross_start(self, target: LayoutSpec, live: list[Request],
+                     chunk_layers: int, caches):
+        """Open a cross-world session staging into the host buffers, in
+        the destination's store shapes and world."""
+        st, w = self._cross_stage(), self._world(target)
+        experts = {k: st[k].view(self._shapes[target][k]) for k in _EXPERTS}
+        kv = st["kv"][:self.Dd * w * self.NE].view(self.Dd, w, self.NE)
+        return self.xw.start(self.active, target, self._world(self.active),
+                             w, live, chunk_layers, caches,
+                             experts_host=experts, kv_host=kv)
+
+    def _commit_cross_world(self, target: LayoutSpec, live: list[Request]):
+        """Commit the cross-world session into the active bank's store and
+        KV buffer, viewed at the destination's world: the addresses its
+        graphs were captured against."""
+        alloc, caches, st = self.xw.commit(
+            live, self.kv_flat,
+            experts_out=self._store_view(target, self._bank),
+            kv_out=self._kv(target))
+        self._post_switch(target)
+        return alloc, caches, st
+
     def switch_monolithic(self, target: LayoutSpec, live: list[Request],
                           alloc, caches=None):
         """Monolithic switch, in place: decode paused for the whole
-        migration; the store and KV buffer keep their addresses. Returns
+        migration; the store and KV buffer keep their addresses. A
+        cross-world target runs the staged path as one chunk, driven to
+        its commit inline, and its pause is the whole switch. Returns
         (new_alloc, new_caches, stats)."""
         target = get_layout(target)
+        if self._is_cross_world(target):
+            self._cross_start(target, live, 10 ** 9, caches)
+            while not self.xw.session.done:
+                self.xw.advance(self.kv_flat)
+            alloc, caches, st = self._commit_cross_world(target, live)
+            # no decode ran between the staging and the commit: the whole
+            # switch is the pause (repro reports plan + commit here)
+            st.pause_s = st.total_s
+            return alloc, caches, st
         out = self._store_view(target, self._bank)
         _, _, alloc, caches, st = self.switcher.monolithic(
             self.active, target, live, self._experts, self.kv_flat,
@@ -574,19 +706,25 @@ class Executor:
 
     def switch_start(self, target: LayoutSpec, live: list[Request],
                      chunk_layers: int, alloc, caches=None):
-        """Open a chunked switch session: the destination is staged layer
-        chunk by layer chunk into the other bank while decode keeps
-        running on the source layout and bank."""
+        """Open a chunked switch session while decode keeps running on the
+        source layout and bank: same-world, the destination is staged
+        layer chunk by layer chunk into the other bank; cross-world, into
+        the host staging."""
         target = get_layout(target)
+        if self._is_cross_world(target):
+            return self._cross_start(target, live, chunk_layers, caches)
         self._ensure_second_bank()
         nb = 1 - self._bank
         return self.switcher.start(self.active, target, live,
                                    self._experts, self.kv_flat, chunk_layers,
                                    cur_alloc=alloc, caches=caches,
                                    experts_dst=self._store_view(target, nb),
-                                   kv_dst=self._kvs[nb])
+                                   kv_dst=self._kv(target, nb))
 
     def switch_advance(self) -> None:
+        if self.xw.session is not None:
+            self.xw.advance(self.kv_flat)
+            return
         self.switcher.advance(self._experts, self.kv_flat)
 
     def switch_abort(self):
@@ -594,15 +732,22 @@ class Executor:
         decode state are untouched — decode never left the source buffers —
         so no _post_switch runs. Returns the aborted attempt's
         SwitchStats."""
+        if self.xw.session is not None:
+            return self.xw.abort()
         return self.switcher.abort()
 
     def switch_commit(self, target: LayoutSpec, live: list[Request]):
-        """Dirty-page delta + commit onto the other bank; returns
-        (new_alloc, new_caches, stats)."""
+        """Dirty-page delta + commit: a cross-world session into the active
+        bank; a same-world one onto the other bank. Returns (new_alloc,
+        new_caches, stats)."""
+        target = get_layout(target)
+        if self.xw.session is not None:
+            return self._commit_cross_world(target, live)
         nb = 1 - self._bank
+        kv_nb = self._kv(target, nb)
         _, kv, alloc, caches, st = self.switcher.commit(live, self.kv_flat)
-        if kv is not self._kvs[nb]:        # identity KV view: carry it over
-            self._kvs[nb].copy_(kv)
+        if kv.data_ptr() != kv_nb.data_ptr():   # identity KV view: carry it
+            kv_nb.copy_(kv)
         self._bank = nb
-        self._post_switch(get_layout(target))
+        self._post_switch(target)
         return alloc, caches, st

@@ -542,3 +542,152 @@ def test_prefix_cache_on_card_matches_cache_off(card):
     assert eng.metrics.prefix_hits > 0 and eng.metrics.cow_forks > 0
     assert dispatch.calls("gather_pages_rows") >= eng.metrics.cow_forks
     assert dispatch.calls("scatter_pages_rows") >= eng.metrics.cow_forks
+
+
+# ---------------------------------------------------------------------------
+# Elastic world size: the cross-world movers and sized layouts on a card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view,G,lo,hi", [("ep", 4, 1, 2), ("tp", 4, 0, 1),
+                                         ("tp", 2, 1, 2), ("ep", 2, 0, 2)])
+def test_staging_gather_matches_plain(card, dtype, view, G, lo, hi):
+    """gather_pages_rows at the cross-world staging shapes, bit-equal to
+    its plain version: one source rank's (Lc * 2, pages, M) rows with
+    M = page * K * dh (per-rank view), or every representative rank's
+    with M = page * K_local * dh (pooled view) in one launch; a layer
+    range inside the pool; a pow2-padded index whose padding reads page
+    0."""
+    from repro_torch.core.layouts import group_info
+    from repro_torch.kernels.kv_pack.ops import gather_pages_rows
+    from repro_torch.serving.kvcache import CacheConfig
+    cfg = _graph_model(dtype)
+    cc = CacheConfig(**_GRAPH_CC)
+    L, _, pages, page, K, dh = cc.view_shape(cfg, G, view)
+    M = page * K * dh
+    rng = np.random.default_rng(G + lo)
+    kv = torch.from_numpy(rng.standard_normal((G, cc.nelems(cfg, G))))
+    kv = kv.to(dtype)
+    idx = torch.zeros(16, dtype=torch.int32)
+    idx[:11] = torch.from_numpy(rng.permutation(pages - 1)[:11] + 1)
+    rep = group_info(cfg, G).kv_rep
+
+    def rows(t):
+        r = t.view(G, L * 2, pages, M)
+        return r[1, 2 * lo:2 * hi] if view == "ep" else r[::rep,
+                                                            2 * lo:2 * hi]
+
+    dispatch.reset_counts()
+    got = gather_pages_rows(rows(kv.to(card)), idx.to(card))
+    torch.cuda.synchronize()
+    assert dispatch.calls("gather_pages_rows") == 1
+    assert _bits_equal(got.cpu(), gather_pages_rows(rows(kv), idx))
+
+
+@pytest.mark.parametrize("src,dst,Gs,Gd", [("ep", "tp@2", 4, 2),
+                                           ("tp@2", "tp", 2, 4),
+                                           ("tp", "ep@2", 4, 2)])
+def test_cross_world_staging_on_card_matches_cpu(card, src, dst, Gs, Gd):
+    """A chunked cross-world session staged from a card's KV buffer (the
+    row gather kernel) fills the host buffer bit-equal to the same session
+    on the CPU (the plain version) and to `copy_kv_pages_host`."""
+    from repro_torch.core.switch import copy_kv_pages_host
+    from repro_torch.core.switch_exec import CrossWorldSwitcher
+    from repro_torch.serving.kvcache import CacheConfig, PageAllocator
+    from repro_torch.serving.request import Request
+    cfg = _graph_model(torch.bfloat16)
+    cc = CacheConfig(**_GRAPH_CC)
+    al = PageAllocator(cc, cfg, Gs, src)
+    per_rank = al.spec.kv_per_rank
+
+    def live():
+        out = []
+        for i, n in enumerate((3, 1, 4, 2, 2)):
+            r = Request(rid=i, prompt=[1] * 9, max_new_tokens=4)
+            g = i % Gs if per_rank else 0
+            r.owner_rank, r.pool_rank = (g if per_rank else -1), g
+            r.pages, r.prefill_pos = al.alloc(g, n), 4 * n - 1
+            out.append(r)
+        return out
+
+    reqs = live()
+    rng = np.random.default_rng(7)
+    NE = cc.nelems(cfg, Gs)
+    kv = torch.from_numpy(rng.standard_normal((1, Gs, NE))).to(
+        torch.bfloat16)
+    staged = {}
+    for dev in ("cpu", card):
+        sw = CrossWorldSwitcher(cfg, cc, 1, None, device=dev)
+        kv_host = torch.empty((1, Gd, NE), dtype=torch.bfloat16)
+        s = sw.start(src, dst, Gs, Gd, reqs, chunk_layers=1,
+                     experts_host=None, kv_host=kv_host)
+        while sw.advance(kv.to(dev)):
+            pass
+        staged[str(dev)] = (kv_host, s.moves[0])
+        sw.abort()
+    (a, moves), (b, _) = staged["cpu"], staged[str(card)]
+    assert _bits_equal(a, b) and moves
+    want = torch.zeros((Gd, NE), dtype=torch.bfloat16)
+    copy_kv_pages_host(cfg, cc, src, dst, Gs, Gd, kv[0], want, moves, 0,
+                       cfg.num_layers)
+    assert _bits_equal(a[0], want)
+
+
+def test_cross_world_commits_at_fixed_addresses(card):
+    """f32, mesh (1, 4), layouts tp, ep and tp@2 warmed up (graphs of every
+    layout at its own world, N=4): a monolithic shrink tp -> tp@2 and a
+    chunked grow back commit into the store and KV buffer the graphs were
+    captured against (addresses unchanged), the store bit-equal after each
+    commit to a fresh pack of the destination from the canonical weights;
+    nothing is captured after warmup and the tokens equal the
+    never-resized run's."""
+    from repro_torch.core.switch import pack_experts_host
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.kvcache import CacheConfig
+    from repro_torch.serving.request import Request
+
+    def run(script=()):
+        eng = MoebiusEngine(_graph_model(torch.float32), (1, 4),
+                            CacheConfig(**_GRAPH_CC),
+                            ecfg=EngineConfig(
+                                policy=STATIC, ladder=(4, 8),
+                                prefill_chunk=8, decode_steps=4,
+                                layouts=("tp", "ep", "tp@2")),
+                            device=card)
+        eng.warmup()
+        ex = eng.ex
+        assert ex.banks == 1 and ex.host_bytes()["staging"] > 0
+        ptrs = ([v.data_ptr() for v in ex._stores[0].values()],
+                ex._kvs[0].data_ptr())
+        rng = np.random.default_rng(0)
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=list(rng.integers(
+                5, 500, int(rng.integers(3, 12)))), max_new_tokens=12,
+                arrival_s=0.0))
+        todo = dict(script)
+        i = 0
+        while eng.sched.has_work():
+            if i in todo:
+                target, chunk = todo.pop(i)
+                eng.ecfg.chunk_layers = chunk
+                assert eng.execute_switch(target)
+                assert ptrs == ([v.data_ptr() for v in ex._stores[0].values()],
+                                ex._kvs[0].data_ptr())
+                assert eng.kv_flat.data_ptr() == ptrs[1]
+                w = ex._world(eng.active)
+                fresh = pack_experts_host(eng.cfg, ex._moe_host, eng.active,
+                                          w, 0, eng.cfg.num_layers)
+                for k, want in zip(("w13", "w2"), fresh):
+                    assert torch.equal(ex._experts[k].cpu(), want)
+            eng.step()
+            i += 1
+        eng.run()
+        assert ex.rt.late_builds == 0 and not todo
+        return eng, {r.rid: r.output for r in eng.finished}
+
+    _, base = run()
+    eng, out = run({3: ("tp@2", 0), 7: ("tp", 1)})
+    assert out == base
+    s = eng.metrics.summary()
+    assert s["cross_world_switches"] == 2
+    assert [r.chunks for r in eng.switch_records] == [1, 2]

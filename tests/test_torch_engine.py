@@ -13,7 +13,6 @@ from repro.serving.kvcache import CacheConfig as JCacheConfig
 from repro.serving.request import Request as JRequest
 from repro_torch.core.policy import PolicyConfig as PortPolicy
 from repro_torch.serving.engine import EngineConfig, MoebiusEngine
-from repro_torch.serving.faults import Fault, FaultPlan
 from repro_torch.serving.kvcache import CacheConfig
 from repro_torch.serving.request import Request
 from tests._torch_common import jax_params, port_tiny_moe
@@ -89,20 +88,14 @@ def test_engine_serves_to_completion_and_is_deterministic(setup):
 
 
 def test_engine_rejects_unported_options():
-    """What is still unported raises instead of being ignored: a fault
-    plan holding a `rank_fail` (elastic world size), sized `@world`
-    layouts and the full-mesh `tpep` layout."""
+    """What is still unported raises instead of being ignored: the
+    full-mesh `tpep` layout, resident or as the start layout."""
     cfg = port_tiny_moe()
-    plan = FaultPlan([Fault("rank_fail", at_step=3, rank=1)])
-    with pytest.raises(NotImplementedError, match="rank_fail"):
+    with pytest.raises(NotImplementedError):
         MoebiusEngine(cfg, (1, 2), CacheConfig(**CC),
-                      ecfg=EngineConfig(policy=STATIC, faults=plan),
+                      ecfg=EngineConfig(policy=STATIC,
+                                        layouts=("tp", "tpep")),
                       device="cpu")
-    for layouts in (("tp", "ep@2"), ("tp", "tpep")):
-        with pytest.raises(NotImplementedError):
-            MoebiusEngine(cfg, (1, 2), CacheConfig(**CC),
-                          ecfg=EngineConfig(policy=STATIC, layouts=layouts),
-                          device="cpu")
     with pytest.raises(NotImplementedError):
         MoebiusEngine(cfg, (1, 2), CacheConfig(**CC),
                       ecfg=EngineConfig(policy=STATIC,

@@ -7,8 +7,8 @@ repro (the same plan gives repro's engine's tokens, counters and virtual
 time), a `chunk_fail` aborts a chunked switch with the source
 layout live, pages conserved and outputs byte-identical (repro's
 tests/test_faults.py:210), a later clean switch commits and resets the
-backoff, and a plan holding a `rank_fail` is refused: elastic world size
-is not ported.
+backoff. `rank_fail` is held to repro's engine in
+tests/test_torch_elastic.py.
 """
 import numpy as np
 import pytest
@@ -190,14 +190,3 @@ def test_scripted_switch_commit_resets_backoff(setup):
     assert eng.coord.backoff_mult == 1.0
     for a in eng.alloc:
         a.check()
-
-
-def test_rank_fail_is_refused(setup):
-    """rank_fail needs elastic world size and degraded mode (not ported):
-    a plan holding one raises at construction instead of being ignored,
-    also when it would fire inside a switch."""
-    _, _, cfg, tp = setup
-    for f in (Fault("rank_fail", at_step=2, rank=1),
-              Fault("rank_fail", switch_chunk=0, rank=0)):
-        with pytest.raises(NotImplementedError, match="rank_fail"):
-            _engine(cfg, tp, faults=FaultPlan((f,)))

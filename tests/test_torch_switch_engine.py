@@ -190,8 +190,8 @@ def test_execute_switch_rejects_bad_targets(setup):
         eng.execute_switch("tp")
     with pytest.raises(ValueError, match="resident"):
         eng.execute_switch("ep")
-    for bad in (("tp", "tpep"), ("tp", "ep@2")):
-        with pytest.raises(NotImplementedError):
-            MoebiusEngine(cfg, (1, 2), CacheConfig(**CC), params_global=tp,
-                          ecfg=EngineConfig(policy=STATIC,
-                                            layouts=bad), device="cpu")
+    with pytest.raises(NotImplementedError):
+        MoebiusEngine(cfg, (1, 2), CacheConfig(**CC), params_global=tp,
+                      ecfg=EngineConfig(policy=STATIC,
+                                        layouts=("tp", "tpep")),
+                      device="cpu")
