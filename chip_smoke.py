@@ -113,6 +113,38 @@ Phases (any failure exits non-zero):
                Prints each switch's plan, pause and total, the bytes put
                on the card at commit, the host bytes held, the device
                peak, the recoveries and tok/s in each world.
+ 11. reference — the serve model of phase 4 (4 layers, bf16, G=2,
+               capacity_factor 16) served eager in tp and then in ep by one
+               engine; the reference is the port's `lm_forward` on the card
+               in fp32 over the same weights (TF32 off), one forward of
+               prompt + output per request and stream. The engines' logits
+               at the last prompt position must lie within LOGIT_TOL (max
+               |d| / max |logit|) of the reference's, and every served
+               token must equal the reference's argmax along its own stream
+               wherever the reference's top-2 margin is clear by the prefix
+               phase's rule (first tokens included); prints the logit
+               error, the counts and the reference's peak memory.
+ 12. dense — a small f32 dense model's prefill on the card and the CPU
+               (equal logits and tokens); then qwen3-4b at full width and
+               full depth (36 layers, ~8.8 GB bf16), seeded `init_params`
+               on the card, G=2, `EngineConfig()` with the fused loop of 8
+               and every graph captured at warmup: the serve phase's 8
+               requests in tp, in ep, and once more through a monolithic
+               tp->ep switch and an ep->tp one in 4 layer chunks with
+               decode steps between them. The K/V of every live request
+               must come through both switches byte-exact, nothing may be
+               captured after warmup, attention (#1) must launch and the
+               expert GEMM (#2) never, the switches must launch #4/#5, and
+               every run's tokens are held to `lm_forward` as in phase 11;
+               then #1 at the dense serve's decode and prefill-chunk shapes
+               within bf16 tolerance and #4/#5 bit-equal at every staging
+               shape the switches used. Prints tok/s and the decode-only
+               step a token per layout, the graph pool, each switch's
+               pause, total and `kv_s` against the K/V bytes bound, and the
+               weights' bytes per layout.
+
+`python3 chip_smoke.py --only reference,dense` runs the named phases alone
+(after the build) and prints no kernels line and no result line.
 
 Prints the card's name and power limit and a JSON line of per-kernel
 numbers; the last line is the JSON object
@@ -123,6 +155,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -501,6 +534,13 @@ def parity_model():
 
 
 def phase_parity() -> None:
+    parity_check(parity_model(), "parity")
+
+
+def parity_check(cfg, what: str) -> None:
+    """A small f32 model's prefill step on the card (kernels) and on the
+    CPU (plain versions), per layout: equal logits within F32_TOL and
+    equal tokens where the top-2 margin is clear of it."""
     import numpy as np
     import torch
 
@@ -509,7 +549,6 @@ def phase_parity() -> None:
     from repro_torch.serving.kvcache import CacheConfig
     from repro_torch.serving.steps import build_decode_pack, build_mixed_step
 
-    cfg = parity_model()
     cc = CacheConfig(page_size=16, pages_ep=16, max_pages_per_req=4)
     rng = np.random.default_rng(SEED)
     prompt = rng.integers(1, cfg.vocab_size, 40)
@@ -535,14 +574,14 @@ def phase_parity() -> None:
                               T(vl), T(bt))
             outs[dev] = (nxt.cpu(), lg[0, 0].cpu())
         err = float((outs["cpu"][1] - outs["cuda"][1]).abs().max())
-        print(f"parity {layout}: f32 logits card vs cpu max_abs_err={err:.3e}"
-              f" tokens {outs['cpu'][0][0, 0].item()} / "
+        print(f"{what} {layout}: f32 logits card vs cpu max_abs_err="
+              f"{err:.3e} tokens {outs['cpu'][0][0, 0].item()} / "
               f"{outs['cuda'][0][0, 0].item()}", flush=True)
-        check(err <= F32_TOL, f"parity {layout}: logits differ by {err}")
+        check(err <= F32_TOL, f"{what} {layout}: logits differ by {err}")
         top2 = outs["cpu"][1].topk(2).values
         if float(top2[0] - top2[1]) > 2 * F32_TOL:
             check(bool((outs["cpu"][0][0, 0] == outs["cuda"][0][0, 0])),
-                  f"parity {layout}: tokens differ")
+                  f"{what} {layout}: tokens differ")
 
 
 def _tree_to(tree, dev):
@@ -1557,7 +1596,7 @@ def serve_trace(eng, reqs, hooks=None, limit: int = 5000):
 
 
 def teacher_forced(eng, reqs, outs, chunk: int, ids=None, lead: int = 0,
-                   dec_sq: int = 1) -> dict:
+                   dec_sq: int = 1, first: dict | None = None) -> dict:
     """rid -> one entry per token of `outs[rid]`, from the engine's own
     pack in its active layout: every request a row of one step (rows split
     over the ranks when the layout shards slots, padded with empty rows to
@@ -1568,7 +1607,8 @@ def teacher_forced(eng, reqs, outs, chunk: int, ids=None, lead: int = 0,
     a mixed step). Without `ids` an entry is (top-2 margin, max |logit|,
     (first, second) token ids); with `ids` (a first call's result) it is
     the margin between those two ids here. Every logit row read must be
-    finite."""
+    finite. `first`, if given, receives rid -> the fp32 logits (V,) at the
+    last prompt position (those of the first output token), on the host."""
     import numpy as np
     import torch
 
@@ -1603,6 +1643,8 @@ def teacher_forced(eng, reqs, outs, chunk: int, ids=None, lead: int = 0,
         big = lg.abs().amax(dim=-1)
         for i in rows:
             rid = reqs[i].rid
+            if first is not None and not out[rid]:
+                first[rid] = lg[i].cpu()
             if ids is None:
                 a, b = top2.indices[i].tolist()
                 out[rid].append((float(top2.values[i, 0]
@@ -2813,6 +2855,652 @@ def kv_pack_hbm(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the serve held against the in-port reference forward
+# ---------------------------------------------------------------------------
+
+# max |engine logit - reference logit| / max |reference logit| at a
+# request's last prompt position. The engine computes in bf16 and the
+# reference in fp32 over the same bf16 weights, so the gap is the bf16
+# rounding of every activation through the stack (DESIGN.md §14's 2e-2 is
+# one bf16 kernel's); five of those bound a dense model of 4-36 layers.
+# An MoE model's routing adds steps on top (report_reference).
+LOGIT_TOL = 5 * BF16_TOL
+
+
+def reference_logits(cfg, params, reqs, streams: dict, what: str) -> tuple:
+    """The port's `lm_forward` on the card in fp32 (TF32 off, set in
+    main) over the engine's bf16 weights, one forward of prompt + output
+    per request and distinct stream, and the same forward in bf16 compute:
+    an equivalent bf16 path of the reference itself. Returns (stream ->
+    rid -> (argmax, top-2 margin, the margin's change between those two
+    ids in the bf16 forward) per output position, as host tensors; rid ->
+    the fp32 logits at the last prompt position) and prints the peak
+    memory."""
+    import torch
+
+    from repro_torch.models.transformer import lm_forward
+    V = cfg.vocab_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    memo, first, n_fwd = {}, {}, 0
+    out = {w: {} for w in streams}
+
+    def forward(dt, seq, P):
+        with torch.inference_mode():
+            lg = lm_forward(cfg.replace(compute_dtype=dt), params,
+                            torch.tensor([seq[:-1]], device="cuda"))
+        lg = lg[0, P - 1:, :V].float()
+        check(bool(torch.isfinite(lg).all()),
+              f"{what}: non-finite reference logits")
+        return lg
+
+    for r in reqs:
+        P = len(r.prompt)
+        for w, s in streams.items():
+            seq = tuple(r.prompt) + tuple(s[r.rid])
+            if seq not in memo:
+                lg = forward(torch.float32, seq, P)
+                top2 = lg.topk(2, dim=-1)
+                a, b = top2.indices[:, 0], top2.indices[:, 1]
+                m = top2.values[:, 0] - top2.values[:, 1]
+                first.setdefault(r.rid, lg[0].cpu())
+                del lg
+                lg16 = forward(torch.bfloat16, seq, P)
+                rows = torch.arange(len(m), device=m.device)
+                m16 = lg16[rows, a] - lg16[rows, b]
+                memo[seq] = (a.cpu(), m.cpu(), (m - m16).abs().cpu())
+                n_fwd += 1
+                del lg16, top2
+            out[w][r.rid] = memo[seq]
+    torch.cuda.synchronize()
+    print(f"{what}: reference lm_forward on the card over the bf16 "
+          f"weights, fp32 compute (TF32 off) and bf16 compute: {n_fwd} "
+          f"forwards of prompt + output each in {time.time() - t0:.2f} s; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB "
+          f"above the weights and what else was held", flush=True)
+    return out, first
+
+
+def bf16_baseline(cfg, params, reqs, what: str) -> tuple:
+    """How far bf16 arithmetic alone moves the logits, through the
+    reference's own code: `lm_forward` over each prompt in bf16 and in
+    fp32 compute (the same weights), max |d| / max |logit| at the last
+    position over the requests. For an MoE model also the (request, layer)
+    sites where the two forwards pick different top-k expert sets for the
+    last position: a bf16 rounding of the hidden state can swap the k-th
+    and (k+1)-th expert, and the swap moves that token's FFN output by a
+    step, not a drift. Returns (error, sites that differ, sites)."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import lm_forward
+    inner, seen = moe.route, []
+
+    def route(c, w, x):
+        out = inner(c, w, x)
+        seen.append(frozenset(out[1][-1].tolist()))
+        return out
+
+    moe.route = route
+    err, flips, sites = 0.0, 0, 0
+    try:
+        for r in reqs:
+            lg, routes = [], []
+            for dt in (torch.float32, torch.bfloat16):
+                seen.clear()
+                with torch.inference_mode():
+                    lg.append(lm_forward(cfg.replace(compute_dtype=dt),
+                                         params, torch.tensor(
+                                             [r.prompt], device="cuda"))
+                              [0, -1, :cfg.vocab_size].float())
+                routes.append(list(seen))
+            err = max(err, float((lg[1] - lg[0]).abs().max()
+                                 / lg[0].abs().max()))
+            flips += sum(a != b for a, b in zip(*routes))
+            sites += len(routes[0])
+    finally:
+        moe.route = inner
+    print(f"{what}: the reference's own bf16 forward against its fp32 one "
+          f"at the last prompt position: max |d| / max |logit| = {err:.4e}"
+          + (f"; top-{cfg.top_k} expert sets differ at {flips} of {sites} "
+             f"(request, layer) sites" if cfg.is_moe else ""), flush=True)
+    return err, flips, sites
+
+
+def logit_error(got: dict, ref: dict) -> float:
+    """max over requests of max |got - ref| / max |ref| (fp32 rows)."""
+    return max(float((got[rid].float() - ref[rid]).abs().max()
+                     / ref[rid].abs().max()) for rid in ref)
+
+
+def hold_to_reference(got: dict, ref: dict, margins: dict,
+                      what: str) -> dict:
+    """Every served token against the reference's argmax along the same
+    stream (each stream teacher-forced through `lm_forward`), at every
+    position: where the reference's top-2 margin is clear they must be
+    equal. Clear is the prefix phase's rule (ROADMAP C13): above the
+    larger of BF16_TOL x max|logit| and MARGIN_HEADROOM x the margin's
+    largest change at that position between the same two ids along
+    equivalent bf16 paths — the engine's (`stream_margins`) and the
+    reference's own bf16 forward (`reference_logits`; an MoE's routing
+    steps show there). Counts positions (equal; different at an unclear
+    margin), first tokens (clear; equal) and clear-margin differences,
+    which must be 0."""
+    n = dict(equal=0, unclear_diff=0, clear=0, first_clear=0,
+             first_equal=0, clear_diff=0)
+    bad = []
+    for rid, toks in got.items():
+        arg, m, d16 = ref[rid]
+        for j, t in enumerate(toks):
+            tol = max(margins[rid][j][2], MARGIN_HEADROOM * float(d16[j]))
+            clear = float(m[j]) > tol
+            n["clear"] += clear
+            same = t == int(arg[j])
+            if j == 0:
+                n["first_clear"] += clear
+                n["first_equal"] += clear and same
+            if same:
+                n["equal"] += 1
+            elif clear:
+                n["clear_diff"] += 1
+                bad.append((rid, j, t, int(arg[j]), float(m[j]), tol))
+            else:
+                n["unclear_diff"] += 1
+    check(not bad, f"{what}: {len(bad)} positions differ from the "
+                   f"reference's argmax at a clear margin (rid, position, "
+                   f"served, reference, margin, tolerance): {bad[:6]}")
+    return n
+
+
+def engine_first_logits(eng, reqs, streams: dict) -> dict:
+    """rid -> the engine's fp32 logits at the last prompt position, from
+    its own pack in its active layout (prefill only)."""
+    first: dict = {}
+    teacher_forced(eng, reqs, {r.rid: streams[r.rid][:1] for r in reqs},
+                   eng.ex.prefill_chunk, first=first)
+    return first
+
+
+def report_reference(what: str, cfg, streams: dict, ref: dict,
+                     margins: dict, firsts: dict, ref_first: dict,
+                     bf16_err: float) -> None:
+    """Logit error per layout, then every stream held to the reference;
+    the logit checks come last, so a failure still prints the tokens'.
+    The tolerance is LOGIT_TOL; for an MoE model at least twice the
+    reference's own bf16 error (`bf16_baseline`): the engine's bf16
+    forward can swap other experts than the reference's bf16 forward
+    does, each swap a step."""
+    tol = LOGIT_TOL if not cfg.is_moe else max(LOGIT_TOL, 2 * bf16_err)
+    errs = {}
+    for layout, fl in firsts.items():
+        errs[layout] = logit_error(fl, ref_first)
+        print(f"{what} {layout}: last-prompt-position logits against the "
+              f"reference, max |d| / max |logit| = {errs[layout]:.4e} "
+              f"(tolerance {tol:.4e})", flush=True)
+    for w, got in streams.items():
+        n = hold_to_reference(got, ref[w], margins[w], f"{what} {w}")
+        pos = sum(map(len, got.values()))
+        print(f"{what} {w}: {pos} positions held to the reference argmax "
+              f"along its own stream: {n['equal']} equal, {n['clear']} at "
+              f"a clear margin, {n['unclear_diff']} differ at unclear "
+              f"margins, {n['clear_diff']} differ at clear ones; first "
+              f"tokens {n['first_equal']}/{n['first_clear']} equal where "
+              f"clear", flush=True)
+    for layout, err in errs.items():
+        check(err <= tol, f"{what} {layout}: logit error {err} above {tol}")
+
+
+def phase_reference(results: dict) -> None:
+    """qwen3-235b-a22b at the serve phase's width and depth (4 layers,
+    bf16, G=2, capacity_factor 16: neither layout nor the reference drops
+    a token). One eager engine serves the serve phase's 8 requests in tp,
+    then in ep; the reference is the port's `lm_forward` on the card in
+    fp32 over the same weights, one request at a time. The engines'
+    last-prompt-position logits are held to it within LOGIT_TOL, and every
+    served token, teacher-forced, to its argmax where its margin is clear
+    (first tokens included)."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.request import Request
+
+    cfg, cc = serve_model()
+    prompts = serve_prompts(cfg)
+
+    def trace(rid0=0):
+        return [Request(rid=rid0 + i, prompt=list(p), max_new_tokens=32,
+                        arrival_s=0.0) for i, p in enumerate(prompts)]
+
+    params = init_params(cfg, SEED, device="cuda")
+    eng = MoebiusEngine(cfg, (1, 2), cc, params_global=params,
+                        ecfg=EngineConfig(start_layout="tp",
+                                          layouts=("tp", "ep"),
+                                          prefill_chunk=128, seed=SEED,
+                                          graphs=False,
+                                          policy=static_policy(), **NO_CACHE),
+                        device="cuda")
+    streams = {}
+    dispatch.reset_counts()
+    for layout, rid0 in (("tp", 0), ("ep", 100)):
+        if str(eng.active) != layout:
+            check(eng.execute_switch(layout), f"reference: ->{layout}")
+        out, wall, _ = serve_trace(eng, trace(rid0))
+        streams[layout] = {rid - rid0: t for rid, t in out.items()
+                           if rid0 <= rid < rid0 + 100}
+        toks = sum(map(len, streams[layout].values()))
+        check(len(streams[layout]) == 8 and toks == 256,
+              f"reference {layout}: {len(streams[layout])} requests, "
+              f"{toks} tokens")
+        print(f"reference {layout}: 8 requests, {toks} tokens in "
+              f"{wall:.3f} s (eager)", flush=True)
+    n = {k: dispatch.calls(k) for k in ("paged_attention", "grouped_matmul")}
+    check(all(v > 0 for v in n.values()), f"reference: launches {n}")
+    for k, v in n.items():
+        results["launches"][k] = results["launches"].get(k, 0) + v
+    check(eng.execute_switch("tp"), "reference: the idle ep->tp switch")
+    firsts = {"tp": engine_first_logits(eng, trace(), streams["tp"])}
+
+    def to_ep():
+        check(eng.execute_switch("ep"), "reference: the idle tp->ep switch")
+
+    t0 = time.time()
+    margins = stream_margins(eng, trace(), streams, to_ep)
+    firsts["ep"] = engine_first_logits(eng, trace(), streams["ep"])
+    print(f"reference: margins teacher-forced through the engine in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref, ref_first = reference_logits(cfg, params, trace(), streams,
+                                      "reference")
+    bf16_err, _, _ = bf16_baseline(cfg, params, trace(), "reference")
+    report_reference("reference", cfg, streams, ref, margins, firsts,
+                     ref_first, bf16_err)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the dense family at full width and depth (qwen3-4b)
+# ---------------------------------------------------------------------------
+
+DENSE_CHUNK_LAYERS = 9      # ep->tp in 4 chunks of 9 of the 36 layers
+DENSE_MONO_AT = 4           # tp->ep monolithic, prefills in flight
+DENSE_CHUNKED_AT = 10       # ep->tp chunked, decode between the chunks
+
+
+def dense_model():
+    """qwen3-4b whole: 36 layers, d_model 2560, 32/8 heads of 128, d_ff
+    9728, vocab 151936, qk-norm; bf16 (~8 GB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.kvcache import CacheConfig
+    return (get_config("qwen3-4b"),
+            CacheConfig(page_size=16, pages_ep=256, max_pages_per_req=32))
+
+
+def dense_parity_model():
+    """A small f32 dense model with the head dim the attention kernel
+    takes."""
+    from repro_torch.configs import get_config
+    return get_config("qwen3-4b").reduced(
+        num_layers=2, d_model=128, num_heads=8, num_kv_heads=2, head_dim=64,
+        d_ff=256, vocab_size=512)
+
+
+def tree_bytes(trees) -> int:
+    """Bytes of the distinct storages under the tensor trees `trees`."""
+    seen, n = set(), 0
+    stack = list(trees)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, list):
+            stack.extend(t)
+        else:
+            st = t.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                n += st.nbytes()
+    return n
+
+
+def timed_serve(eng, reqs, hooks=None, limit: int = 2000) -> tuple:
+    """serve_trace with every iteration timed (timed_step): returns (rid ->
+    tokens of these requests, wall seconds, the iteration log)."""
+    import torch
+    for r in reqs:
+        eng.submit(r)
+    hooks = dict(hooks or {})
+    log = []
+    t0 = time.time()
+    while eng.sched.has_work():
+        if len(log) in hooks:
+            hooks.pop(len(log))()
+        log.append(timed_step(eng))
+        check(len(log) < limit, "dense: engine made no progress")
+    eng.run()
+    torch.cuda.synchronize()
+    check(not hooks, f"dense: hooks never reached {sorted(hooks)}")
+    ids = {r.rid for r in reqs}
+    return ({r.rid: list(r.output) for r in eng.finished if r.rid in ids},
+            time.time() - t0, log)
+
+
+def record_staging(shapes: dict):
+    """Wrap the switch movers' row gather and scatter to note every call's
+    shapes (`shapes["gather"]`, `shapes["scatter"]`); returns the undo."""
+    from repro_torch.core import switch
+    inner_g, inner_s = switch.gather_pages_rows, switch.scatter_pages_rows
+
+    def gather(pool, idx):
+        shapes["gather"].add((tuple(pool.shape), tuple(pool.stride()),
+                              tuple(idx.shape)))
+        return inner_g(pool, idx)
+
+    def scatter(pool, idx, vals, *, row0=0):
+        shapes["scatter"].add((tuple(pool.shape), tuple(idx.shape),
+                               tuple(vals.shape), row0))
+        return inner_s(pool, idx, vals, row0=row0)
+
+    switch.gather_pages_rows, switch.scatter_pages_rows = gather, scatter
+
+    def undo():
+        switch.gather_pages_rows = inner_g
+        switch.scatter_pages_rows = inner_s
+    return undo
+
+
+def rows_kernels_at(shapes: dict, what: str) -> int:
+    """#4 and #5 against their plain versions, bit for bit, at every
+    (pool, index, values) shape the switches launched them with: random
+    bf16 pools at the same strides, indices of distinct pages (scatters
+    compare only on duplicate-free indices, DESIGN.md §14). Returns the
+    number of shapes held."""
+    import torch
+
+    from repro_torch.kernels.kv_pack.kernel import (gather_pages_rows_cuda,
+                                                    scatter_pages_rows_cuda)
+    from repro_torch.kernels.kv_pack.ref import (gather_pages_rows_ref,
+                                                 scatter_pages_rows_ref)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    bf = torch.bfloat16
+
+    def rand(n):
+        return torch.randn(n, generator=gen, device="cuda").to(bf)
+
+    def pages_idx(G, n, pages):
+        check(n <= pages, f"{what}: {n} distinct pages of {pages}")
+        return torch.stack([torch.randperm(pages, generator=gen,
+                                           device="cuda")[:n]
+                            for _ in range(G)]).to(torch.int32)
+
+    for shape, stride, ishape in sorted(shapes["gather"]):
+        size = 1 + sum((s - 1) * st for s, st in zip(shape, stride))
+        pool = rand(size).as_strided(shape, stride)
+        idx = pages_idx(shape[0], ishape[-1], shape[2])
+        idx = idx if len(ishape) == 2 else idx[0]
+        check(torch_equal(gather_pages_rows_cuda(pool, idx).view(torch.int16),
+                          gather_pages_rows_ref(pool, idx)
+                          .view(torch.int16)),
+              f"{what}: gather_pages_rows at {shape} differs from its plain "
+              f"version")
+    for shape, ishape, vshape, row0 in sorted(shapes["scatter"]):
+        pool = rand(math.prod(shape)).view(shape)
+        idx = pages_idx(shape[0], ishape[-1], shape[2])
+        vals = rand(math.prod(vshape)).view(vshape)
+        a = scatter_pages_rows_cuda(pool.clone(), idx, vals, row0)
+        b = scatter_pages_rows_ref(pool.clone(), idx, vals, row0=row0)
+        check(torch_equal(a.view(torch.int16), b.view(torch.int16)),
+              f"{what}: scatter_pages_rows at {shape} differs from its "
+              f"plain version")
+    return len(shapes["gather"]) + len(shapes["scatter"])
+
+
+def dense_attention_cases(cfg, G: int, B: int, chunk: int, kv_hi: int):
+    """#1 at the dense serve's shapes: decode and a prefill chunk per
+    layout (tp: heads split over the ranks, every slot on each; ep: every
+    head, the slots split)."""
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    return [
+        ("tp_decode", dict(G=G, B=B, Sq=1, H=H // G, K=K // G, kv_lo=64,
+                           kv_hi=kv_hi)),
+        ("ep_decode", dict(G=G, B=B // G, Sq=1, H=H, K=K, kv_lo=64,
+                           kv_hi=kv_hi)),
+        ("tp_prefill", dict(G=G, B=1, Sq=chunk, H=H // G, K=K // G,
+                            kv_lo=chunk, kv_hi=kv_hi)),
+        ("ep_prefill", dict(G=G, B=1, Sq=chunk, H=H, K=K, kv_lo=chunk,
+                            kv_hi=kv_hi)),
+    ]
+
+
+def phase_dense(results: dict) -> None:
+    """(a) A small f32 dense model's prefill on the card and the CPU
+    (parity_check). (b) qwen3-4b at full width and depth, bf16, seeded
+    `init_params` on the card, G=2, `EngineConfig()` with the fused loop of
+    8 and every graph captured at warmup: the serve phase's 8 requests in
+    tp, then in ep, then once more with a monolithic tp->ep switch and an
+    ep->tp one in layer chunks with decode steps between them. The K/V of
+    every live request is byte-exact through both switches, nothing is
+    captured after warmup, attention (#1) launches and the expert GEMM
+    (#2) never, the switches launch #4/#5; every run's tokens are held to
+    the port's `lm_forward` (fp32, on the card) as in the reference phase.
+    Then #1 at the dense shapes within bf16 tolerance and #4/#5 bit-equal
+    at every staging shape the switches used."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import (count_params_actual,
+                                             init_params)
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.request import Request
+
+    parity_check(dense_parity_model(), "dense parity")
+    cfg, cc = dense_model()
+    L, G, N = cfg.num_layers, 2, 8
+    prompts = serve_prompts(cfg)
+
+    def trace(rid0=0):
+        return [Request(rid=rid0 + i, prompt=list(p), max_new_tokens=32,
+                        arrival_s=0.0) for i, p in enumerate(prompts)]
+
+    t0 = time.time()
+    params = init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"dense config: {cfg.name} full width and depth, num_layers={L}, "
+          f"d_model={cfg.d_model}, heads {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} of {cfg.dh}, d_ff={cfg.d_ff}, vocab="
+          f"{cfg.vocab_size}, qk_norm, bf16: {count_params_actual(params)} "
+          f"parameters, init_params on the card {time.time() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = MoebiusEngine(cfg, (1, G), cc, params_global=params,
+                        ecfg=EngineConfig(start_layout="tp",
+                                          layouts=("tp", "ep"),
+                                          prefill_chunk=128, seed=SEED,
+                                          decode_steps=N,
+                                          chunk_layers=DENSE_CHUNK_LAYERS,
+                                          policy=static_policy()),
+                        device="cuda")
+    ex = eng.ex
+    check(ex._stores == [{}] and ex._moe_host is None,
+          "dense: the executor holds an expert store")
+    eng.warmup()
+    t_build = time.time() - t0
+    check(ex.banks == 2 and ex._stores[1] == {},
+          f"dense: banks {ex.banks}")
+    rt = ex.rt
+    for key, e in rt.executables.items():
+        check(e.launches.get("paged_attention", 0) > 0
+              and e.launches.get("grouped_matmul", 0) == 0,
+              f"dense: graph {key} launches {e.launches}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    pool = rt.pool_bytes()
+    kv_bank = ex._kvs[0].numel() * ex._kvs[0].element_size()
+    print(f"dense: engine built and warmed in {t_build:.2f} s: "
+          f"{len(rt.executables)} graphs (tp and ep, rungs "
+          f"{ex.ladder}, single steps and the fused loop of {N}, both "
+          f"banks), each with attention and no expert GEMM; graph pool "
+          f"{pool / 2**20:.1f} MiB = {pool / total:.2%} of the card; the "
+          f"second bank holds K/V only: {ex.second_bank_bytes()} bytes "
+          f"({ex.second_bank_bytes() / 2**30:.2f} GiB, the KV buffer "
+          f"{kv_bank} bytes); device {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    mlp = [ex.packs[lo]["layers"]["mlp"] for lo in ex.layouts]
+    check(all(m[k].data_ptr() == mlp[0][k].data_ptr() for m in mlp
+              for k in mlp[0]), "dense: the layouts do not share one MLP")
+    for lo in ex.layouts:
+        print(f"dense weights {lo}: {tree_bytes([ex.packs[lo]])} bytes "
+              f"({tree_bytes([ex.packs[lo]]) / 2**30:.2f} GiB) in its decode "
+              f"pack, of which the rank-major MLP shared by both layouts "
+              f"{tree_bytes([mlp[0]])} bytes", flush=True)
+    print(f"dense weights: both packs together {tree_bytes(ex.packs.values())}"
+          f" bytes ({tree_bytes(ex.packs.values()) / 2**30:.2f} GiB), the "
+          f"global params {tree_bytes([params])} bytes", flush=True)
+
+    shapes = {"gather": set(), "scatter": set()}
+    undo = record_staging(shapes)
+    kv_bytes_page = (2 * L * cc.page_size * cfg.num_kv_heads * cfg.dh
+                     * cfg.param_dtype.itemsize)
+    rows = ("gather_pages_rows", "scatter_pages_rows")
+    streams, per_layout, switch_log = {}, {}, []
+    dispatch.reset_counts()
+    replays0 = rt.replayed_launches()
+
+    def live_switch(target, chunks):
+        check(len(eng.sched.live()) > 0, f"dense: nothing live at ->{target}")
+        snap = kv_written(eng)
+        c0 = {k: dispatch.calls(k) for k in rows}
+        eng.ecfg.chunk_layers = chunks
+        check(eng.execute_switch(target), f"dense: ->{target} aborted")
+        rec = eng.switch_records[-1]
+        grew = {k: dispatch.calls(k) - c0[k] for k in rows}
+        check(all(v > 0 for v in grew.values()),
+              f"dense: {rec.direction} launched {grew}")
+        n = check_kv_moved(snap, kv_written(eng), f"dense {rec.direction}")
+        switch_log.append((rec, grew, n))
+
+    try:
+        for layout, rid0, hooks in (
+                ("tp", 0, None), ("ep", 100, None),
+                ("switched", 200, {DENSE_MONO_AT: lambda: live_switch("ep", 0),
+                                   DENSE_CHUNKED_AT: lambda: live_switch(
+                                       "tp", DENSE_CHUNK_LAYERS)})):
+            start = "tp" if layout == "switched" else layout
+            if str(eng.active) != start:
+                eng.ecfg.chunk_layers = 0
+                check(eng.execute_switch(start), f"dense: idle ->{start}")
+            out, wall, log = timed_serve(eng, trace(rid0), hooks)
+            eng.clear_prefix_cache()
+            streams[layout] = {rid - rid0: t for rid, t in out.items()}
+            toks = sum(map(len, out.values()))
+            check(len(out) == 8 and toks == 256 and all(
+                0 <= t < cfg.vocab_size for v in out.values() for t in v),
+                f"dense {layout}: {len(out)} requests, {toks} tokens")
+            dec = [ms / N for ms, d, _ in log if d]
+            per_layout[layout] = (toks / wall, sum(dec) / max(1, len(dec)),
+                                  len(dec), len(log))
+    finally:
+        undo()
+    check(eng.sched.prefix is not None and eng.metrics.dispatches > 0,
+          "dense: EngineConfig() runs the prefix cache")
+    late = rt.late_builds
+    check(late == 0, f"dense: {late} captures after warmup")
+    n = {k: dispatch.calls(k) for k in ("paged_attention", "grouped_matmul")
+         + rows}
+    replayed = rt.replayed_launches() - replays0
+    check(n["paged_attention"] > 0 and replayed["paged_attention"] > 0
+          and n["grouped_matmul"] == 0
+          and replayed.get("grouped_matmul", 0) == 0,
+          f"dense: launches {n}, replayed {dict(replayed)}")
+    for k, v in n.items():
+        results["launches"][k] = results["launches"].get(k, 0) + v
+    for layout, (tok_s, dec_ms, n_dec, iters) in per_layout.items():
+        print(f"dense {layout}: 8 requests, 256 tokens, {iters} iterations "
+              f"-> {tok_s:.2f} tok/s; decode-only {dec_ms:.3f} ms a token "
+              f"(mean of {n_dec} fused iterations of {N})", flush=True)
+    for rec, grew, n_kv in switch_log:
+        nbytes = 2 * (rec.kv_pages + rec.delta_pages) * kv_bytes_page
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"dense switch {rec.direction}: chunks={rec.chunks} "
+              f"pause_s={rec.pause_s:.4f} total_s={rec.total_s:.4f} "
+              f"kv_s={rec.kv_s:.4f} plan_s={rec.plan_s:.4f} "
+              f"weights_s={rec.weights_s:.6f} kv_pages={rec.kv_pages} "
+              f"delta_pages={rec.delta_pages} live={rec.live_requests}; "
+              f"{nbytes / 1e9:.3f} GB of K/V pages read and written once: "
+              f"bound {b_ms:.3f} ms, kv_s {rec.kv_s * 1e3 / b_ms:.2f}x it; "
+              f"row launches {grew}; K/V of {n_kv} live requests byte-exact",
+              flush=True)
+    check([r.direction for r, _, _ in switch_log] == ["tp_to_ep", "ep_to_tp"]
+          and switch_log[1][0].chunks == L // DENSE_CHUNK_LAYERS,
+          f"dense: switches {[(r.direction, r.chunks) for r, _, _ in switch_log]}")
+    print(f"dense: launches on the path {n}; graph replays "
+          f"{dict(replayed)}; 0 captures after warmup", flush=True)
+
+    # the reference: the engine's first logits and margins, then lm_forward
+    firsts = {"tp": engine_first_logits(eng, trace(), streams["tp"])}
+
+    def to_ep():
+        eng.ecfg.chunk_layers = 0
+        check(eng.execute_switch("ep"), "dense: the idle tp->ep switch")
+
+    t0 = time.time()
+    margins = stream_margins(eng, trace(), streams, to_ep)
+    firsts["ep"] = engine_first_logits(eng, trace(), streams["ep"])
+    print(f"dense: margins teacher-forced through the engine in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    del eng, ex, rt, mlp
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref, ref_first = reference_logits(cfg, params, trace(), streams, "dense")
+    bf16_err, _, _ = bf16_baseline(cfg, params, trace(), "dense")
+    report_reference("dense", cfg, streams, ref, margins, firsts, ref_first,
+                     bf16_err)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dense_kernel_checks(cfg, prompts, shapes)
+
+
+def dense_kernel_checks(cfg, prompts, shapes: dict) -> None:
+    """#1 at the dense serve's shapes within bf16 tolerance, #4/#5 at the
+    switches' staging shapes bit-equal to their plain versions."""
+    import torch
+
+    from repro_torch.kernels.paged_attention.kernel import \
+        paged_attention_cuda
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    kv_hi = max(map(len, prompts)) + 32
+    for name, kw in dense_attention_cases(cfg, 2, 8, 128, kv_hi):
+        a = attention_case(gen, **kw)
+        got = paged_attention_cuda(a["q"], a["k_pool"], a["v_pool"],
+                                   a["block_table"], a["kv_lens"],
+                                   a["q_offset"], window=0)
+        e_row = row_rel_err(got, attention_plain(a))
+        check(e_row <= BF16_TOL, f"dense: attention {name} row error "
+                                 f"{e_row} above {BF16_TOL}")
+        print(f"dense: attention at {name} ({kw['G']} ranks x {kw['B']} x "
+              f"{kw['Sq']} queries x {kw['H']} heads, {kw['K']} KV heads, kv "
+              f"{kw['kv_lo']}-{kw['kv_hi']}) row error {e_row:.3e} <= "
+              f"{BF16_TOL}", flush=True)
+        del a, got
+    n_shapes = rows_kernels_at(shapes, "dense")
+    check(n_shapes > 0, "dense: no staging shape recorded")
+    print(f"dense: gather_pages_rows / scatter_pages_rows bit-equal to their "
+          f"plain versions at the switches' {n_shapes} staging shapes "
+          f"{sorted(shapes['gather'])} / {sorted(shapes['scatter'])}",
+          flush=True)
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them: every
     number this script prints stands beside them."""
@@ -2849,6 +3537,9 @@ def main() -> int:
                                         "C7514")):
                 print(f"  {name}: {line.strip()}")
 
+    only = None
+    if len(sys.argv) > 2 and sys.argv[1] == "--only":
+        only = set(sys.argv[2].split(","))
     phases = [("kernels", lambda: phase_kernels(results)),
               ("parity", phase_parity),
               ("parity_switch", phase_parity_switch),
@@ -2858,10 +3549,14 @@ def main() -> int:
               ("graphs", lambda: phase_graphs(results)),
               ("policy", lambda: phase_policy(results)),
               ("prefix", lambda: phase_prefix(results)),
-              ("elastic", lambda: phase_elastic(results))]
+              ("elastic", lambda: phase_elastic(results)),
+              ("reference", lambda: phase_reference(results)),
+              ("dense", lambda: phase_dense(results))]
     results: dict = {"launches": {}}
     t_run = time.time()
     for name, fn in phases:
+        if only is not None and name not in only:
+            continue
         t0 = time.time()
         fn()
         # a phase's engine may sit in a reference cycle (a wrapped
@@ -2871,6 +3566,10 @@ def main() -> int:
         print(f"phase {name}: {time.time() - t0:.1f} s (run so far "
               f"{time.time() - t_run:.1f} s)", flush=True)
 
+    if only is not None:
+        print(f"chip_smoke: ran only {sorted(only)} (a partial run prints "
+              f"no kernels line and no result)", flush=True)
+        return 0
     # #3 and #6 serve only tests in repro: no main path launches them
     off_path = ("gather_pages", "scatter_pages")
     rows = []

@@ -1,5 +1,6 @@
 """Weight bridge: parameter trees between numpy (e.g. repro's params after
-`np.asarray`) and torch, leaf by leaf, keeping the tree and the values.
+`np.asarray`) and torch, leaf by leaf, keeping the tree and the values —
+any family's tree (a dense `mlp`, a LayerNorm's `bias`, MoE experts).
 
 `jax.random` streams cannot be replayed in torch, so tests that compare
 the port with `repro` build the weights once with repro's `init_params`

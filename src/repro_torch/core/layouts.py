@@ -259,19 +259,51 @@ def pad_vocab_tables(params: dict, V: int, Vp: int) -> dict:
     return out
 
 
+def mlp_rank_major(mlp: dict, G: int) -> dict:
+    """Stacked dense-MLP weights -> rank-major over a G-rank group, sharded
+    Megatron-style under every layout (repro's w_gate/w_up on their last
+    dim, w_down on its first width dim): w_gate/w_up (L, D, F) ->
+    (L, G, D, F/G), w_down (L, F, D) -> (L, G, F/G, D), materialized. The
+    MLP is not switch state, so one copy serves every resident layout of
+    the world; a tree already rank-major at G passes through, sharing its
+    tensors."""
+    if mlp["w_up"].dim() == 4:
+        if mlp["w_up"].shape[1] != G:
+            raise ValueError(f"dense MLP is rank-major over "
+                             f"{mlp['w_up'].shape[1]} ranks, not {G}")
+        return mlp
+    Fd = mlp["w_up"].shape[-1]
+    if Fd % G:
+        raise ValueError(f"d_ff {Fd} does not split over G={G} ranks")
+    out = {}
+    for k, w in mlp.items():
+        L, a, b = w.shape
+        if k == "w_down":
+            out[k] = w.reshape(L, G, a // G, b)
+        else:
+            out[k] = torch.movedim(w.reshape(L, a, G, b // G), 2, 1)
+        out[k] = out[k].contiguous()
+    return out
+
+
 def pack_params(cfg: ModelConfig, params: dict, layout: str, G: int,
                 expert_G: int | None = None) -> dict:
     """Init-time global params -> stored form for `layout` on a G-rank
-    group (rank-major experts; vocab padded to a multiple of 256)."""
+    group (rank-major experts, or the rank-major dense MLP; vocab padded to
+    a multiple of 256)."""
     spec = get_layout(layout)
     params = pad_vocab_tables(params, cfg.vocab_size,
                               padded_vocab(cfg.vocab_size))
-    if cfg.is_moe and "layers" in params and "moe" in params["layers"]:
+    layers = params.get("layers", {})
+    if cfg.is_moe and "moe" in layers:
         lay = make_expert_layout(cfg.num_experts, expert_G or G,
                                  spec.expert_kind)
         params = dict(params)
-        params["layers"] = dict(params["layers"])
-        params["layers"]["moe"] = _pack_moe(params["layers"]["moe"], lay)
+        params["layers"] = {**layers, "moe": _pack_moe(layers["moe"], lay)}
+    elif not cfg.is_moe and "mlp" in layers:
+        params = dict(params)
+        params["layers"] = {**layers,
+                            "mlp": mlp_rank_major(layers["mlp"], G)}
     return params
 
 

@@ -359,6 +359,9 @@ class SwitchExecutor:
         if s is None or s.done:
             raise RuntimeError("no switch chunk left to advance")
         w_lo, w_hi, kv_lo, kv_hi = s.chunks[s.next_chunk]
+        # the decode step launched after the previous chunk may still run
+        # on the card: it is not the movers' time
+        _sync(self.device)
         if self.cfg.is_moe and w_hi > w_lo:
             t = time.perf_counter()
             self._reshard(s.src, s.dst, experts, s.experts_dst, w_lo, w_hi)
@@ -694,6 +697,7 @@ class CrossWorldSwitcher:
         if s is None or s.done:
             raise RuntimeError("no cross-world chunk left to advance")
         w_lo, w_hi, kv_lo, kv_hi = s.chunks[s.next_chunk]
+        _sync(self.device)      # the previous chunk's decode step is not ours
         if s.experts_host is not None and w_hi > w_lo:
             t = time.perf_counter()
             eg = s.dst.expert_group(s.G_dst, self.Dd * s.G_dst)

@@ -8,6 +8,13 @@ Expert weights are stored rank-major exactly as in `repro`: w13
     TP layout: ep=1,            tp_inner=G    -> (G, E,     2I/G, D)
     EP layout: ep=gcd(E, G),    tp_inner=G/ep -> (G, E/ep,  2I/tp, D)
 
+Two compute paths, as in `repro`:
+  * `moe_ffn_global` — global math with capacity dispatch (the reference
+    forward, `transformer.lm_forward`); plain torch, it calls neither the
+    grouped-GEMM kernel nor the decode paths, so it stays independent of
+    what it is used to check;
+  * `moe_decode_tp` / `moe_decode_ep` — the per-rank serve paths.
+
 The per-rank decode paths take the stacked form of `repro`'s shard_map
 locals: every tensor carries the rank dim G first (distributed/ranks.py).
 `repro` builds its dispatch and combine from one-hot einsums; the port
@@ -111,8 +118,7 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, layers: int | None,
              device) -> dict:
     """Global-layout expert params, repro's tree and fan-in scales
     (packing to rank-major happens in core/layouts)."""
-    if cfg.num_shared_experts:
-        raise NotImplementedError("shared experts are not ported yet")
+    _check_no_shared(cfg)
     L = () if layers is None else (layers,)
     D, E, I = cfg.d_model, cfg.num_experts, cfg.d_expert
     return {
@@ -120,6 +126,13 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, layers: int | None,
         "w13": dense_init(gen, L + (E, 2 * I, D), D, cfg.param_dtype, device),
         "w2": dense_init(gen, L + (E, D, I), I, cfg.param_dtype, device),
     }
+
+
+def _check_no_shared(cfg: ModelConfig) -> None:
+    if cfg.num_shared_experts:
+        raise NotImplementedError(
+            "shared experts are not ported yet (ROADMAP A1: shared experts "
+            "and qwen2-moe-a2.7b)")
 
 
 def capacity(T: int, cfg: ModelConfig, factor: float | None = None) -> int:
@@ -180,6 +193,77 @@ def _gather_rows(src: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Global capacity-dispatch MoE (the reference forward's path)
+# ---------------------------------------------------------------------------
+
+def global_dispatch(cfg: ModelConfig, eids: torch.Tensor, C: int,
+                    token_chunk: int = 1024):
+    """eids (T, k) -> (pos, keep), each (T, k): the slot each (token,
+    choice) entry takes in its expert's C-row buffer and whether it fits.
+    repro's rule: tokens queue per expert in token order, first come within
+    capacity; the dispatch runs over chunks of at most `token_chunk` tokens
+    with the per-expert counts carried from chunk to chunk."""
+    T = eids.shape[0]
+    khot = F.one_hot(eids, cfg.num_experts).sum(1)             # (T, E)
+    nchunk = max(1, -(-T // token_chunk))
+    Tc = -(-T // nchunk)
+    counts = torch.zeros_like(khot[0])
+    pos, keep = [], []
+    for t0 in range(0, T, Tc):
+        p, kp, counts = _dispatch_tensors(khot[t0:t0 + Tc], counts, C)
+        e = eids[t0:t0 + Tc]
+        pos.append(p.gather(-1, e))
+        keep.append(kp.gather(-1, e))
+    return torch.cat(pos), torch.cat(keep)
+
+
+def moe_ffn_global(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                   lay: ExpertLayout, *, cap_factor: float | None = None,
+                   token_chunk: int = 1024) -> torch.Tensor:
+    """x (T, D) -> (T, D). p holds the router and w13/w2, global
+    (E, 2I, D) / (E, D, I) or rank-major (G, E_loc, ., .).
+
+    Capacity-based: tokens over capacity are dropped (contribute 0 for that
+    expert). Deterministic in token order. The index form of repro's
+    one-hot einsums: each kept entry's token is written to its slot of an
+    (E, C, D) buffer, the experts run on every rank's width slice with
+    fp32 accumulation, the width partials sum, and each token gathers its
+    kept slots back, gate-weighted."""
+    _check_no_shared(cfg)
+    T, D = x.shape
+    E = cfg.num_experts
+    G, ep, tp = lay.G, lay.ep, lay.tp_inner
+    E_loc = E // ep
+    cdt = cfg.compute_dtype
+    C = capacity(T, cfg, cap_factor)
+    gates, eids, _ = route(cfg, p["router"], x)                # (T, k)
+    pos, keep = global_dispatch(cfg, eids, C, token_chunk)
+    slot = torch.where(keep, eids * C + pos, E * C).reshape(-1)
+    k = eids.shape[1]
+    xs = x.to(cdt)[:, None].expand(T, k, D).reshape(-1, D)
+    Xd = _scatter_rows(E * C, slot[None], xs[None])[0]         # (E*C, D)
+
+    # expert compute on rank-major weights: (ep, E_loc, C, D) broadcast
+    # over the tp ranks of each expert group -> (G, E_loc, C, D)
+    Xr = Xd.view(ep, 1, E_loc, C, D).expand(ep, tp, E_loc, C, D)
+    Xr = Xr.reshape(G, E_loc, C, D).float()
+    w13, w2 = p["w13"], p["w2"]
+    if w13.dim() == 3:                    # global (E, 2I, D): pack on the fly
+        w13 = pack_w13(w13, lay)
+        w2 = pack_experts(w2, lay, width_axis=2)
+    h = Xr @ w13.float().transpose(-1, -2)                     # (G,E_loc,C,W)
+    hg, hu = h.chunk(2, dim=-1)
+    h = (F.silu(hg) * hu).to(cdt)
+    y = h.float() @ w2.float().transpose(-1, -2)               # partial over tp
+    Y = y.view(ep, tp, E_loc, C, D).sum(1).reshape(E * C, D).to(cdt)
+
+    # combine: each token's kept entries, gate-weighted, in fp32
+    got = _gather_rows(Y[None], slot[None])[0].view(T, k, D).float()
+    out = (got * (gates * keep)[..., None]).sum(1)
+    return out.to(cdt).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Explicit per-rank decode paths (stacked ranks)
 # ---------------------------------------------------------------------------
 
@@ -210,11 +294,6 @@ def _buffer_rows(load: torch.Tensor, cap: int, trim: bool) -> int:
         return cap
     c = int(load.max()) if load.numel() else 0
     return min(cap, max(4, -(-c // 4) * 4))
-
-
-def _check_no_shared(cfg: ModelConfig) -> None:
-    if cfg.num_shared_experts:
-        raise NotImplementedError("shared experts are not ported yet")
 
 
 def moe_decode_tp(cfg: ModelConfig, p: dict, x: torch.Tensor, *,

@@ -1,59 +1,136 @@
-"""Model init by family (port of repro/models/registry.py, `moe` only).
+"""Model dispatch by family: init / forward / loss / analytic parameter
+counts (port of repro/models/registry.py; the dense and moe families).
 
-`init_params` builds `repro`'s global param tree (transformer.init_lm +
-init_attention + init_moe) with the same shapes, dtypes and fan-in scales,
-drawn on the target device from a seeded `torch.Generator`. The draws are
-not `jax.random`'s, so weights that must equal `repro`'s come across
-through `repro_torch.bridge` instead.
+`init_params` builds `repro`'s global param tree (transformer.init_lm) with
+the same shapes, dtypes and fan-in scales, drawn on the target device from
+a seeded `torch.Generator`. The draws are not `jax.random`'s, so weights
+that must equal `repro`'s come across through `repro_torch.bridge`
+instead. The SSM, hybrid, encoder-decoder and VLM families are not ported
+(ROADMAP A12) and raise; the parameter counts cover every family, since
+they are shape arithmetic.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.dispatch import require_device
-from repro_torch.models.common import ModelConfig, dense_init
-from repro_torch.models.moe import init_moe
+from repro_torch.models.common import ModelConfig, cross_entropy
+from repro_torch.models.moe import ExpertLayout
+from repro_torch.models.transformer import init_lm, lm_forward
+
+PORTED_FAMILIES = ("dense", "moe")
 
 
-def _init_attention(cfg: ModelConfig, gen, L: int, device) -> dict:
-    D, H, K, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.dh
-    pd = cfg.param_dtype
-    p = {
-        "wq": dense_init(gen, (L, D, H * dh), D, pd, device),
-        "wk": dense_init(gen, (L, D, K * dh), D, pd, device),
-        "wv": dense_init(gen, (L, D, K * dh), D, pd, device),
-        "wo": dense_init(gen, (L, H * dh, D), H * dh, pd, device),
-    }
-    if cfg.qk_norm:
-        p["q_norm"] = torch.ones((L, dh), dtype=pd, device=device)
-        p["k_norm"] = torch.ones((L, dh), dtype=pd, device=device)
-    return p
-
-
-def _norm(cfg: ModelConfig, prefix: tuple, device) -> dict:
-    return {"scale": torch.ones(prefix + (cfg.d_model,),
-                                dtype=cfg.param_dtype, device=device)}
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP A12); the "
+            f"port runs {PORTED_FAMILIES}")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device="cuda") -> dict:
-    """Global-layout params of a `moe`-family model, on `device`."""
-    if cfg.family != "moe":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (moe only)")
+    """Global-layout params of a dense or moe model, on `device`."""
+    _check_family(cfg)
     dev = require_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    L, V, D = cfg.num_layers, cfg.vocab_size, cfg.d_model
-    p = {
-        "embed": dense_init(gen, (V, D), D, cfg.param_dtype, dev),
-        "final_norm": _norm(cfg, (), dev),
-    }
+    return init_lm(cfg, gen, device=dev)
+
+
+def forward(cfg: ModelConfig, params: dict, batch: dict, *,
+            lay: ExpertLayout | None = None) -> torch.Tensor:
+    """batch: tokens (B,S) -> logits (B,S,V)."""
+    _check_family(cfg)
+    return lm_forward(cfg, params, batch["tokens"], lay=lay)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
+            lay: ExpertLayout | None = None) -> torch.Tensor:
+    logits = forward(cfg, params, batch, lay=lay)
+    return cross_entropy(logits, batch["labels"], cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Analytic parameter counts (for MODEL_FLOPS = 6*N*D in a roofline)
+# ---------------------------------------------------------------------------
+
+def _attn_params(cfg: ModelConfig) -> int:
+    D, H, K, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.dh
+    n = D * H * dh + 2 * D * K * dh + H * dh * D
+    if cfg.qk_norm:
+        n += 2 * dh
+    return n
+
+
+def _mlp_params(cfg: ModelConfig, d_ff: int) -> int:
+    if cfg.mlp_type == "swiglu":
+        return 3 * cfg.d_model * d_ff
+    return 2 * cfg.d_model * d_ff
+
+
+def _expert_params(cfg: ModelConfig) -> int:
+    return 3 * cfg.d_model * cfg.d_expert   # w13 (2I*D) + w2 (D*I)
+
+
+def _shared_expert_params(cfg: ModelConfig) -> int:
+    F = cfg.num_shared_experts * cfg.d_expert
+    return 3 * cfg.d_model * F + cfg.d_model
+
+
+def _ssm_params(cfg: ModelConfig) -> int:
+    D, Din = cfg.d_model, cfg.d_inner
+    H, N, G, Kc = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups, cfg.ssm_conv
+    n = 2 * D * Din                  # wz, wx
+    n += 2 * D * G * N               # wB, wC
+    n += D * H                       # wdt
+    n += 3 * H                       # A_log, Dskip, dt_bias
+    n += Kc * (Din + 2 * G * N)      # convs
+    n += Din                         # norm
+    n += Din * D                     # out_proj
+    return n
+
+
+def _norm_params(cfg: ModelConfig) -> int:
+    return 2 * cfg.d_model if cfg.norm_type == "layernorm" else cfg.d_model
+
+
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    V, D, L = cfg.vocab_size, cfg.d_model, cfg.num_layers
+    n = V * D                                        # embed
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(gen, (V, D), D, cfg.param_dtype, dev)
-    p["layers"] = {
-        "attn_norm": _norm(cfg, (L,), dev),
-        "mlp_norm": _norm(cfg, (L,), dev),
-        "attn": _init_attention(cfg, gen, L, dev),
-        "moe": init_moe(cfg, gen, L, dev),
-    }
-    return p
+        n += V * D                                   # lm_head
+    n += _norm_params(cfg)
+    if cfg.family == "ssm":
+        return n + L * (_ssm_params(cfg) + _norm_params(cfg))
+    if cfg.family == "hybrid":
+        n += L * (_ssm_params(cfg) + _norm_params(cfg))
+        n += (_attn_params(cfg) + _mlp_params(cfg, cfg.d_ff)
+              + 2 * _norm_params(cfg))
+        return n
+    if cfg.family == "encdec":
+        Le = cfg.encoder_layers
+        n += cfg.max_positions * D                   # learned decoder positions
+        n += _norm_params(cfg)                       # enc final norm
+        n += Le * (_attn_params(cfg) + _mlp_params(cfg, cfg.d_ff)
+                   + 2 * _norm_params(cfg))
+        n += L * (2 * _attn_params(cfg) + _mlp_params(cfg, cfg.d_ff)
+                  + 3 * _norm_params(cfg))
+        return n
+    per_layer = _attn_params(cfg) + 2 * _norm_params(cfg)
+    if cfg.is_moe:
+        router = D * cfg.num_experts
+        experts = cfg.num_experts * _expert_params(cfg)
+        if active_only:
+            experts = cfg.top_k * _expert_params(cfg)
+        per_layer += router + experts
+        if cfg.num_shared_experts:
+            per_layer += _shared_expert_params(cfg)
+    else:
+        per_layer += _mlp_params(cfg, cfg.d_ff)
+    return n + L * per_layer
+
+
+def count_params_actual(params) -> int:
+    if isinstance(params, dict):
+        return sum(count_params_actual(v) for v in params.values())
+    return params.numel()

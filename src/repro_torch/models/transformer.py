@@ -1,0 +1,102 @@
+"""Decoder-only transformer assembly, dense and MoE (port of
+repro/models/transformer.py).
+
+`lm_forward` is the global-math forward: the port's reference for its own
+serve step (tests/test_torch_dense.py, `chip_smoke.py`'s reference and
+dense phases). It is plain torch — `flash_attention` and `moe_ffn_global`
+— and calls none of the kernels the serve step runs. A loop over layers
+stands in for repro's `lax.scan`; there is no remat (no training here) and
+no prefix embeddings (the VLM prefix is not ported, ROADMAP A1).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.attention import attn_forward, init_attention
+from repro_torch.models.common import (ModelConfig, apply_norm, cross_entropy,
+                                       dense_init, index_tree, init_norm,
+                                       matmul)
+from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models.moe import (ExpertLayout, init_moe,
+                                    make_expert_layout, moe_ffn_global)
+
+
+def init_lm(cfg: ModelConfig, gen: torch.Generator, *, device) -> dict:
+    """Decoder-only LM params, repro's tree, shapes and fan-in scales.
+    Layer params are stacked on a leading L dim."""
+    L = cfg.num_layers
+    p = {
+        "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), cfg.d_model,
+                            cfg.param_dtype, device),
+        "final_norm": init_norm(cfg, device=device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.vocab_size, cfg.d_model),
+                                  cfg.d_model, cfg.param_dtype, device)
+    layers = {
+        "attn_norm": init_norm(cfg, (L,), device=device),
+        "mlp_norm": init_norm(cfg, (L,), device=device),
+        "attn": init_attention(cfg, gen, L, device=device),
+    }
+    if cfg.is_moe:
+        layers["moe"] = init_moe(cfg, gen, L, device)
+    else:
+        layers["mlp"] = init_mlp(cfg, gen, L, device=device)
+    p["layers"] = layers
+    return p
+
+
+def block_forward(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
+                  lay: ExpertLayout | None = None, q_offset: int = 0,
+                  kv_ctx=None, causal: bool = True, rope: bool = True,
+                  cap_factor: float | None = None, return_kv: bool = False):
+    """One transformer block on global math. x (B,S,D)."""
+    h = apply_norm(cfg, x, lp["attn_norm"])
+    attn_out = attn_forward(cfg, lp["attn"], h, causal=causal, rope=rope,
+                            q_offset=q_offset, kv_ctx=kv_ctx,
+                            return_kv=return_kv)
+    if return_kv:
+        attn_out, kv = attn_out
+    x = x + attn_out.to(x.dtype)
+    h = apply_norm(cfg, x, lp["mlp_norm"])
+    if cfg.is_moe:
+        B, S, D = h.shape
+        y = moe_ffn_global(cfg, lp["moe"], h.reshape(B * S, D), lay,
+                           cap_factor=cap_factor).reshape(B, S, D)
+    else:
+        y = mlp_forward(cfg, lp["mlp"], h)
+    x = x + y.to(x.dtype)
+    if return_kv:
+        return x, kv
+    return x
+
+
+def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+               lay: ExpertLayout | None = None,
+               cap_factor: float | None = None) -> torch.Tensor:
+    """tokens (B,S) -> logits (B,S,V) in the compute dtype.
+
+    The weights may be stored in another dtype than `cfg.compute_dtype`
+    (bf16 weights, fp32 compute): each product casts one weight, so no
+    second copy of the store is held."""
+    if lay is None and cfg.is_moe:
+        lay = make_expert_layout(cfg.num_experts, 1, "ep")
+    cdt = cfg.compute_dtype
+    x = params["embed"][tokens.long()].to(cdt)
+    x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32) \
+        .to(cdt).item()
+    for li in range(params["layers"]["attn_norm"]["scale"].shape[0]):
+        x = block_forward(cfg, index_tree(params["layers"], li), x, lay=lay,
+                          cap_factor=cap_factor)
+    x = apply_norm(cfg, x, params["final_norm"])
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return matmul(x, head.t().to(cdt))
+
+
+def lm_loss(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            labels: torch.Tensor, *,
+            lay: ExpertLayout | None = None) -> torch.Tensor:
+    logits = lm_forward(cfg, params, tokens, lay=lay)
+    return cross_entropy(logits, labels, cfg.logit_softcap)

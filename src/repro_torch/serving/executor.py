@@ -13,6 +13,10 @@ path (`EngineConfig.decode_steps > 1`), and `run_prefill` with
 `run_decode` the two-phase iteration's (`mixed_batch=False`). It also
 runs the Scheduler's `CopyPages` decisions, the prefix cache's
 copy-on-write forks, through the kv_pack kernels (`copy_pages`).
+Everything expert-shaped is keyed on `cfg.is_moe`, as in repro: a dense
+model has no expert store and no canonical host copy, its rank-major MLP
+is built once and shared by every layout's pack, its second bank holds
+K/V only, and its switches move K/V alone.
 
 Fixed addresses. The decode kinds (single steps at Sq == 1 and the fused
 loop) run as CUDA graphs on a card, captured at `warmup()` for every
@@ -56,7 +60,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.layouts import (LayoutSpec, expert_store_shapes,
-                                      get_layout, pack_params,
+                                      get_layout, mlp_rank_major,
+                                      pack_params,
                                       pad_vocab_tables, padded_vocab,
                                       world_of)
 from repro_torch.core.residency import ResidentRuntime
@@ -139,35 +144,51 @@ class Executor:
         # once, for the active layout only. An inactive layout's pack is
         # built from a tree without expert weights: packing them and then
         # dropping them would hold a second full expert copy meanwhile.
-        moe_g = params_global["layers"]["moe"]
-        # canonical unpacked experts on the host, for the cross-world
-        # movers (a fresh pack of the destination per chunk); nothing else
-        # reads them, so they are kept only while layouts of more than one
-        # world are resident
+        # A dense model's rank-major MLP is built once, for every pack.
         self._moe_host = None
-        if len(set(self.worlds.values())) > 1:
-            self._moe_host = {k: moe_g[k].to("cpu", copy=True)
-                              for k in _EXPERTS}
-        bare = dict(params_global)
-        bare["layers"] = dict(params_global["layers"])
-        bare["layers"]["moe"] = {k: v for k, v in moe_g.items()
-                                 if k not in _EXPERTS}
+        store: dict = {}
+        if cfg.is_moe:
+            moe_g = params_global["layers"]["moe"]
+            # canonical unpacked experts on the host, for the cross-world
+            # movers (a fresh pack of the destination per chunk); nothing
+            # else reads them, so they are kept only while layouts of more
+            # than one world are resident
+            if len(set(self.worlds.values())) > 1:
+                self._moe_host = {k: moe_g[k].to("cpu", copy=True)
+                                  for k in _EXPERTS}
+            bare = dict(params_global)
+            bare["layers"] = dict(params_global["layers"])
+            bare["layers"]["moe"] = {k: v for k, v in moe_g.items()
+                                     if k not in _EXPERTS}
+        else:
+            worlds = set(self.worlds.values())
+            if len(worlds) > 1:
+                raise NotImplementedError(
+                    "a dense model with resident layouts of several worlds "
+                    "is not ported yet (ROADMAP A1): its rank-major MLP "
+                    "would need a copy per world")
+            bare = dict(params_global)
+            bare["layers"] = {**params_global["layers"],
+                              "mlp": mlp_rank_major(
+                                  params_global["layers"]["mlp"],
+                                  worlds.pop())}
         self.packs: dict[LayoutSpec, dict] = {}
-        store, shapes = {}, {}
         for spec in self.layouts:
-            src = params_global if spec is self.active else bare
+            active = cfg.is_moe and spec is self.active
             w = self.worlds[spec]
-            pk = build_decode_pack(cfg, pack_params(cfg, src, spec, w),
-                                   spec, w)
-            if spec is self.active:
+            pk = build_decode_pack(
+                cfg, pack_params(cfg, params_global if active else bare,
+                                 spec, w), spec, w)
+            if active:
                 moe = pk["layers"]["moe"]
                 for k in _EXPERTS:
                     store[k] = _own_flat(moe.pop(k), moe_g[k])
             self.packs[spec] = pk
         # every layout's view of the one store (same elements, its order,
         # at its world)
-        self._shapes = {spec: expert_store_shapes(cfg, spec, w)
-                        for spec, w in self.worlds.items()}
+        self._shapes = ({spec: expert_store_shapes(cfg, spec, w)
+                         for spec, w in self.worlds.items()}
+                        if cfg.is_moe else {})
         self._pack_cache: dict = {}        # assembled packs, per layout/bank
 
         # the data plane at fixed addresses: bank 0 holds the store and the
@@ -232,8 +253,10 @@ class Executor:
     # the data plane (banks of fixed-address buffers)
     # ------------------------------------------------------------------
     def _store_view(self, layout: LayoutSpec, bank: int) -> dict:
-        return {k: self._stores[bank][k].view(self._shapes[layout][k])
-                for k in _EXPERTS}
+        """The bank's expert store in `layout`'s shapes ({} for a dense
+        model)."""
+        return {k: v.view(self._shapes[layout][k])
+                for k, v in self._stores[bank].items()}
 
     def _kv(self, layout: LayoutSpec, bank: int | None = None
             ) -> torch.Tensor:
@@ -310,11 +333,13 @@ class Executor:
         bank = self._bank if bank is None else bank
         pk = self._pack_cache.get((layout, bank))
         if pk is None:
-            pk = dict(self.packs[layout])
-            layers = dict(pk["layers"])
-            layers["moe"] = {**layers["moe"],
-                             **self._store_view(layout, bank)}
-            pk["layers"] = layers
+            pk = self.packs[layout]
+            if self.cfg.is_moe:
+                pk = dict(pk)
+                layers = dict(pk["layers"])
+                layers["moe"] = {**layers["moe"],
+                                 **self._store_view(layout, bank)}
+                pk["layers"] = layers
             self._pack_cache[(layout, bank)] = pk
         return pk
 
@@ -663,7 +688,8 @@ class Executor:
         """Open a cross-world session staging into the host buffers, in
         the destination's store shapes and world."""
         st, w = self._cross_stage(), self._world(target)
-        experts = {k: st[k].view(self._shapes[target][k]) for k in _EXPERTS}
+        experts = {k: st[k].view(self._shapes[target][k])
+                   for k in self._stores[0]}
         kv = st["kv"][:self.Dd * w * self.NE].view(self.Dd, w, self.NE)
         return self.xw.start(self.active, target, self._world(self.active),
                              w, live, chunk_layers, caches,

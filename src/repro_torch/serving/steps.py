@@ -15,6 +15,9 @@ Batch geometry per layout:
   EP: batch slots sharded over the ranks (slot s lives on rank s // bs);
       attention weights replicated; experts rank-local with all_to_all
       dispatch.
+A dense model's MLP is width-sharded (Megatron) under both: a psum after
+it under TP; under EP an all_gather of the tokens before it and a
+psum_scatter after.
 
 KV pool: the unified flat buffer's layout view (serving/kvcache.py). The
 step writes the chunk's K/V into it IN PLACE (repro's step is functional
@@ -35,7 +38,9 @@ from repro_torch.distributed import ranks
 from repro_torch.kernels.dispatch import require_device
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models.common import (ModelConfig, apply_norm, apply_rope,
-                                       rmsnorm, rope_cos_sin)
+                                       index_tree, matmul, rmsnorm,
+                                       rope_cos_sin)
+from repro_torch.models.mlp import activate
 from repro_torch.models.moe import moe_decode_ep, moe_decode_tp
 from repro_torch.serving.kvcache import CacheConfig
 
@@ -50,9 +55,9 @@ def build_decode_pack(cfg: ModelConfig, params: dict, layout: str, G: int):
     """Stored layout params (core.layouts.pack_params) -> decode pack.
 
     TP expands attention to rank-major (the paper's dual-mode attention
-    buffer); EP keeps global attention weights replicated."""
-    if not cfg.is_moe:
-        raise NotImplementedError("only the moe family is ported")
+    buffer); EP keeps global attention weights replicated. The FFN is the
+    stored one: rank-major experts (moe) or the rank-major dense MLP, the
+    same tensors under every layout of the world."""
     spec = get_layout(layout)
     lp = params["layers"]
     pack = {"embed": params["embed"], "final_norm": params["final_norm"]}
@@ -62,15 +67,10 @@ def build_decode_pack(cfg: ModelConfig, params: dict, layout: str, G: int):
         "attn_norm": lp["attn_norm"], "mlp_norm": lp["mlp_norm"],
         "attn": (attn_rank_major(cfg, lp["attn"], G) if spec.dense_tp
                  else lp["attn"]),
-        "moe": lp["moe"],
     }
+    ffn = "moe" if cfg.is_moe else "mlp"
+    pack["layers"][ffn] = lp[ffn]
     return pack
-
-
-def _index_tree(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _index_tree(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 def _squeeze_pack(cfg, spec: LayoutSpec, pack: dict) -> dict:
@@ -80,7 +80,7 @@ def _squeeze_pack(cfg, spec: LayoutSpec, pack: dict) -> dict:
     takes the place of `lax.scan`."""
     L = pack["layers"]["attn_norm"]["scale"].shape[0]
     out = dict(pack)
-    out["layers"] = [_index_tree(pack["layers"], li) for li in range(L)]
+    out["layers"] = [index_tree(pack["layers"], li) for li in range(L)]
     return out
 
 
@@ -152,13 +152,24 @@ def _write_pages(pool_l, k, v, page_ids, slots) -> None:
 
 
 def _ffn(cfg, lpk, h_flat, spec: LayoutSpec, lay_exp, trim: bool):
-    """h_flat (G, T, D) -> (G, T, D); the TP path returns AFTER the psum.
+    """h_flat (G, T, D) -> (G, T, D); the TP paths return AFTER the psum.
     trim=False sizes the expert buffers at repro's static capacity (no
     host read: the decode kinds, which run as CUDA graphs); trim=True at
-    the step's largest load (the eager prefill-chunk steps)."""
+    the step's largest load (the eager prefill-chunk steps). A dense MLP
+    reads no device value on the host either way."""
     if spec.expert_full_mesh:
         raise NotImplementedError(
             "full-mesh expert layouts (tpep) are not ported yet")
+    if not cfg.is_moe:
+        mlp = lpk["mlp"]                 # this layer's (G, ...) width slices
+        if spec.dense_tp:
+            return ranks.psum(matmul(activate(cfg, h_flat, mlp),
+                                     mlp["w_down"]))
+        # DP attention + TP MLP: all_gather the tokens, width-local MLP,
+        # reduce_scatter back (the same per-layer volume as TP's psum)
+        full = ranks.all_gather(h_flat, axis=0, tiled=True)    # (G, G*T, D)
+        return ranks.psum_scatter(matmul(activate(cfg, full, mlp),
+                                         mlp["w_down"]))
     if spec.expert_kind == "tp":
         return ranks.psum(moe_decode_tp(cfg, lpk["moe"], h_flat, trim=trim))
     return moe_decode_ep(cfg, lpk["moe"], h_flat, lay_exp, trim=trim)

@@ -1,7 +1,7 @@
 """Shared setup of the port's cross-framework tests (tests/test_torch_*.py).
 
-The tiny MoE config is conftest's `tiny_moe`, built once per framework from
-the same keyword arguments; weights come from repro's `init_params` and
+The tiny configs are conftest's `tiny_moe` and `tiny_dense`, built once per
+framework from the same keyword arguments; weights come from repro's `init_params` and
 cross to torch through `repro_torch.bridge`.
 """
 import jax
@@ -12,6 +12,17 @@ import torch
 TINY_MOE_KW = dict(num_heads=8, num_kv_heads=2, head_dim=8, d_model=32,
                    num_layers=2, num_experts=8, top_k=2, d_expert=32,
                    vocab_size=256, capacity_factor=8.0)
+
+
+TINY_DENSE_KW = dict(num_heads=8, num_kv_heads=2, head_dim=8, d_model=32,
+                     num_layers=2, d_ff=64, vocab_size=256)
+
+
+def port_tiny_dense():
+    from repro_torch.configs import get_config
+    return get_config("internlm2-1.8b").reduced(
+        **TINY_DENSE_KW, param_dtype=torch.float32,
+        compute_dtype=torch.float32)
 
 
 def port_tiny_moe():

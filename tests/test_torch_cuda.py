@@ -691,3 +691,87 @@ def test_cross_world_commits_at_fixed_addresses(card):
     s = eng.metrics.summary()
     assert s["cross_world_switches"] == 2
     assert [r.chunks for r in eng.switch_records] == [1, 2]
+
+
+# ---------------------------------------------------------------------------
+# The dense family and the reference forward on the card
+# ---------------------------------------------------------------------------
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _dense_model(dtype=torch.float32):
+    """tiny_dense's family at the head dim the attention kernel takes."""
+    from repro_torch.configs import get_config
+    return get_config("qwen3-4b").reduced(
+        num_layers=2, d_model=128, num_heads=8, num_kv_heads=2, head_dim=64,
+        d_ff=256, vocab_size=512, param_dtype=dtype, compute_dtype=dtype)
+
+
+def test_dense_engine_on_card(card):
+    """f32, mesh (1, 2), graphs warmed, fused 4: tp->ep monolithic and
+    ep->tp chunked give the never-switched tokens on the card and the CPU
+    engine's; attention launches, the expert GEMM never does, the switch
+    moves K/V through the row kernels, nothing is captured after warmup."""
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.kvcache import CacheConfig
+    from repro_torch.serving.request import Request
+    cfg = _dense_model()
+    params = init_params(cfg, 0, device="cpu")
+
+    def run(dev, script=()):
+        eng = MoebiusEngine(cfg, (1, 2), CacheConfig(**_GRAPH_CC),
+                            params_global=_tree_to(params, dev),
+                            ecfg=EngineConfig(policy=STATIC, ladder=(4, 8),
+                                              prefill_chunk=8,
+                                              decode_steps=4,
+                                              chunk_layers=1),
+                            device=dev)
+        eng.warmup()
+        rng = np.random.default_rng(0)
+        for i in range(6):
+            eng.submit(Request(rid=i, prompt=list(rng.integers(
+                5, 500, int(rng.integers(3, 12)))), max_new_tokens=10,
+                arrival_s=0.0))
+        todo = dict(script)
+        dispatch.reset_counts()
+        i = 0
+        while eng.sched.has_work():
+            if i in todo:
+                target, eng.ecfg.chunk_layers = todo.pop(i)
+                assert eng.execute_switch(target)
+            eng.step()
+            i += 1
+        eng.run()
+        assert eng.ex.rt.late_builds == 0 and not todo
+        return {r.rid: r.output for r in eng.finished}
+
+    base = run(card)
+    assert dispatch.calls("paged_attention") > 0
+    assert dispatch.calls("grouped_matmul") == 0
+    assert run(torch.device("cpu")) == base
+    assert run(card, {3: ("ep", 0), 6: ("tp", 1)}) == base
+    assert dispatch.calls("grouped_matmul") == 0
+    for op in ("gather_pages_rows", "scatter_pages_rows"):
+        assert dispatch.calls(op) > 0, op
+
+
+@pytest.mark.parametrize("family", ["dense", "moe"])
+def test_lm_forward_on_card_matches_cpu(card, family):
+    """The reference forward on the card against the same call on the CPU
+    (f32, TF32 off): logits within 1e-4."""
+    from repro_torch.models.registry import init_params
+    from repro_torch.models.transformer import lm_forward
+    cfg = _dense_model() if family == "dense" else _graph_model(torch.float32)
+    params = init_params(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 40)))
+    dispatch.reset_counts()
+    got = lm_forward(cfg, _tree_to(params, card), toks.to(card)).cpu()
+    assert sum(dispatch.COUNTS.values()) == 0       # no kernel in the oracle
+    torch.testing.assert_close(got, lm_forward(cfg, params, toks),
+                               rtol=1e-4, atol=1e-4)
