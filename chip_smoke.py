@@ -142,6 +142,30 @@ Phases (any failure exits non-zero):
                step a token per layout, the graph pool, each switch's
                pause, total and `kv_s` against the K/V bytes bound, and the
                weights' bytes per layout.
+ 13. shared — shared experts: a small f32 MoE with them on the card and
+               the CPU (equal logits and tokens); then qwen2-moe-a2.7b at
+               full width and depth (24 layers, 60 routed experts top-4 and
+               4 shared, 14.3 B parameters, 28.63 GB bf16), seeded
+               `init_params` on the card, capacity_factor 16, G=2,
+               `EngineConfig()` with the fused loop of 8 and graphs. The
+               caller's routed experts are freed once the engine is built
+               (the store is the one copy). The serve phase's 8 requests
+               in tp, in ep, and through a monolithic tp->ep switch and an
+               ep->tp one in 4 chunks of 6 layers: the store equals the
+               packing of a host copy of the caller's experts after every
+               switch, live K/V byte-exact, nothing captured after warmup,
+               #1, #2, #4, #5, #7-#10 launched. Held to `lm_forward` in
+               fp32 (ROADMAP C17): the engine's teacher-forced tokens with
+               its routing pinned in the reference by the margin rule (0
+               clear-margin differences, logits within LOGIT_TOL), the
+               served tokens unpinned at the bf16 floor (at most twice the
+               reference's own bf16 departures), logits as in phase 11.
+               Then #1, #2 at this model's shapes (timed), #4/#5 at the
+               staging shapes and #7-#10 on one layer of the store, each
+               against its plain version. Prints tok/s, the decode-only
+               step against its bound from the experts the step's counts
+               touch, each switch against the store's bytes bound, the
+               graph pool, the packs' bytes and the memory after each step.
 
 `python3 chip_smoke.py --only reference,dense` runs the named phases alone
 (after the build) and prints no kernels line and no result line.
@@ -153,6 +177,7 @@ The script imports nothing of JAX and nothing of the JAX package `repro`.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -1596,7 +1621,8 @@ def serve_trace(eng, reqs, hooks=None, limit: int = 5000):
 
 
 def teacher_forced(eng, reqs, outs, chunk: int, ids=None, lead: int = 0,
-                   dec_sq: int = 1, first: dict | None = None) -> dict:
+                   dec_sq: int = 1, first: dict | None = None,
+                   routes: dict | None = None) -> dict:
     """rid -> one entry per token of `outs[rid]`, from the engine's own
     pack in its active layout: every request a row of one step (rows split
     over the ranks when the layout shards slots, padded with empty rows to
@@ -1608,7 +1634,9 @@ def teacher_forced(eng, reqs, outs, chunk: int, ids=None, lead: int = 0,
     (first, second) token ids); with `ids` (a first call's result) it is
     the margin between those two ids here. Every logit row read must be
     finite. `first`, if given, receives rid -> the fp32 logits (V,) at the
-    last prompt position (those of the first output token), on the host."""
+    last prompt position (those of the first output token), on the host;
+    `routes` (an MoE model, dec_sq 1) rid -> per layer the (positions, k)
+    experts the engine routed each fed token to, in position order."""
     import numpy as np
     import torch
 
@@ -1655,6 +1683,40 @@ def teacher_forced(eng, reqs, outs, chunk: int, ids=None, lead: int = 0,
                 out[rid].append(float(lg[i, a] - lg[i, b]))
 
     plen = [len(r.prompt) for r in reqs]
+    seen: list = []
+
+    def run(step, *args):
+        """One step call; with `routes`, note its routing per (row, pos)."""
+        from repro_torch.models import moe
+        if routes is None:
+            return step(*args)
+        inner = moe.route
+
+        def route(c, w, x):
+            out = inner(c, w, x)
+            seen.append(out[1])
+            return out
+
+        seen.clear()
+        moe.route = route
+        try:
+            return step(*args)
+        finally:
+            moe.route = inner
+
+    def note_routes(Sq, valid):
+        """valid: (row, first position, count) of the tokens fed."""
+        if routes is None:
+            return
+        for li, e in enumerate(seen):
+            e = (e.reshape(B, Sq, -1) if spec.slots_sharded
+                 else e[0].reshape(B, Sq, -1)).cpu()
+            for i, p0, k in valid:
+                per = routes.setdefault(reqs[i].rid, [[] for _ in seen])
+                per[li].append(e[i, :k])
+                check(sum(map(len, per[li])) == p0 + k,
+                      "teacher forcing: routes out of position order")
+
     starts = [0] * bool(lead) + list(range(lead, max(plen), chunk))
     for s, e in zip(starts, starts[1:] + [max(plen)]):
         toks = np.zeros((1, B, chunk), np.int32)
@@ -1663,9 +1725,11 @@ def teacher_forced(eng, reqs, outs, chunk: int, ids=None, lead: int = 0,
             k = max(0, min(e, plen[i]) - s)
             toks[0, i, :k] = r.prompt[s:s + k]
             vl[0, i] = k
-        _, kv, lg = pre(pack, kv, T(toks), T(np.full((1, B), s, np.int32)),
-                        T(vl), T(bt))
+        _, kv, lg = run(pre, pack, kv, T(toks),
+                        T(np.full((1, B), s, np.int32)), T(vl), T(bt))
         note(lg, [i for i in range(n) if s < plen[i] <= e])
+        note_routes(chunk, [(i, s, int(vl[0, i])) for i in range(n)
+                            if vl[0, i] > 0])
     for j in range(max(map(len, outs.values())) - 1):
         toks = np.zeros((1, B, dec_sq), np.int32)
         pos = np.zeros((1, B), np.int32)
@@ -1675,8 +1739,12 @@ def teacher_forced(eng, reqs, outs, chunk: int, ids=None, lead: int = 0,
             toks[0, i, 0] = outs[reqs[i].rid][j]
             pos[0, i] = plen[i] + j
             vl[0, i] = 1
-        _, kv, lg = dec(pack, kv, T(toks), T(pos), T(vl), T(bt))
+        _, kv, lg = run(dec, pack, kv, T(toks), T(pos), T(vl), T(bt))
         note(lg, rows)
+        note_routes(dec_sq, [(i, plen[i] + j, 1) for i in rows])
+    if routes is not None:
+        for rid in list(routes):
+            routes[rid] = [torch.cat(x) for x in routes[rid]]
     return out
 
 
@@ -2868,14 +2936,50 @@ def kv_pack_hbm(results: dict) -> None:
 LOGIT_TOL = 5 * BF16_TOL
 
 
-def reference_logits(cfg, params, reqs, streams: dict, what: str) -> tuple:
+@contextlib.contextmanager
+def pin_routes(pinned, what: str):
+    """Inside, `moe.route` returns the experts of `pinned` (per layer, in
+    call order, (positions, k)) with its own router probabilities there as
+    the gates, renormalised as `route` does: the reference takes the
+    engine's top-k choice and computes the rest itself. pinned None:
+    nothing changes."""
+    from repro_torch.models import moe
+    if pinned is None:
+        yield
+        return
+    inner, i = moe.route, [0]
+
+    def route(c, w, x):
+        _, eids, probs = inner(c, w, x)
+        e = pinned[i[0]].to(eids.device)
+        i[0] += 1
+        check(e.shape == eids.shape, f"{what}: pinned routes "
+                                     f"{tuple(e.shape)} for {eids.shape}")
+        g = probs.gather(-1, e)
+        return g / g.sum(-1, keepdim=True), e, probs
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = inner
+    check(i[0] == len(pinned), f"{what}: {i[0]} routed layers of "
+                               f"{len(pinned)} pinned")
+
+
+def reference_logits(cfg, params, reqs, streams: dict, what: str,
+                     lay=None, routes: dict | None = None) -> tuple:
     """The port's `lm_forward` on the card in fp32 (TF32 off, set in
     main) over the engine's bf16 weights, one forward of prompt + output
     per request and distinct stream, and the same forward in bf16 compute:
-    an equivalent bf16 path of the reference itself. Returns (stream ->
-    rid -> (argmax, top-2 margin, the margin's change between those two
-    ids in the bf16 forward) per output position, as host tensors; rid ->
-    the fp32 logits at the last prompt position) and prints the peak
+    an equivalent bf16 path of the reference itself (`lay`: the expert
+    layout of rank-major routed weights in `params`). `routes` (stream ->
+    rid -> the engine's experts per layer, from `teacher_forced`): every
+    token's experts pinned to the engine's choice (`pin_routes`), one
+    forward per stream. Returns (stream -> rid -> (argmax, top-2 margin,
+    the margin's change between those two ids in the bf16 forward, and
+    the bf16 forward's argmax) per output position, as host tensors; rid
+    -> the fp32 logits at the last prompt position) and prints the peak
     memory."""
     import torch
 
@@ -2888,10 +2992,10 @@ def reference_logits(cfg, params, reqs, streams: dict, what: str) -> tuple:
     memo, first, n_fwd = {}, {}, 0
     out = {w: {} for w in streams}
 
-    def forward(dt, seq, P):
-        with torch.inference_mode():
+    def forward(dt, seq, P, pinned):
+        with torch.inference_mode(), pin_routes(pinned, what):
             lg = lm_forward(cfg.replace(compute_dtype=dt), params,
-                            torch.tensor([seq[:-1]], device="cuda"))
+                            torch.tensor([seq[:-1]], device="cuda"), lay=lay)
         lg = lg[0, P - 1:, :V].float()
         check(bool(torch.isfinite(lg).all()),
               f"{what}: non-finite reference logits")
@@ -2901,23 +3005,27 @@ def reference_logits(cfg, params, reqs, streams: dict, what: str) -> tuple:
         P = len(r.prompt)
         for w, s in streams.items():
             seq = tuple(r.prompt) + tuple(s[r.rid])
-            if seq not in memo:
-                lg = forward(torch.float32, seq, P)
+            pinned = routes[w][r.rid] if routes else None
+            key = (w, seq) if routes else seq
+            if key not in memo:
+                lg = forward(torch.float32, seq, P, pinned)
                 top2 = lg.topk(2, dim=-1)
                 a, b = top2.indices[:, 0], top2.indices[:, 1]
                 m = top2.values[:, 0] - top2.values[:, 1]
                 first.setdefault(r.rid, lg[0].cpu())
                 del lg
-                lg16 = forward(torch.bfloat16, seq, P)
+                lg16 = forward(torch.bfloat16, seq, P, pinned)
                 rows = torch.arange(len(m), device=m.device)
                 m16 = lg16[rows, a] - lg16[rows, b]
-                memo[seq] = (a.cpu(), m.cpu(), (m - m16).abs().cpu())
+                memo[key] = (a.cpu(), m.cpu(), (m - m16).abs().cpu(),
+                             lg16.argmax(-1).cpu())
                 n_fwd += 1
                 del lg16, top2
-            out[w][r.rid] = memo[seq]
+            out[w][r.rid] = memo[key]
     torch.cuda.synchronize()
     print(f"{what}: reference lm_forward on the card over the bf16 "
-          f"weights, fp32 compute (TF32 off) and bf16 compute: {n_fwd} "
+          f"weights{', the engine routing pinned' if routes else ''}, "
+          f"fp32 compute (TF32 off) and bf16 compute: {n_fwd} "
           f"forwards of prompt + output each in {time.time() - t0:.2f} s; "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB "
@@ -2925,7 +3033,7 @@ def reference_logits(cfg, params, reqs, streams: dict, what: str) -> tuple:
     return out, first
 
 
-def bf16_baseline(cfg, params, reqs, what: str) -> tuple:
+def bf16_baseline(cfg, params, reqs, what: str, lay=None) -> tuple:
     """How far bf16 arithmetic alone moves the logits, through the
     reference's own code: `lm_forward` over each prompt in bf16 and in
     fp32 compute (the same weights), max |d| / max |logit| at the last
@@ -2955,7 +3063,8 @@ def bf16_baseline(cfg, params, reqs, what: str) -> tuple:
                 with torch.inference_mode():
                     lg.append(lm_forward(cfg.replace(compute_dtype=dt),
                                          params, torch.tensor(
-                                             [r.prompt], device="cuda"))
+                                             [r.prompt], device="cuda"),
+                                         lay=lay)
                               [0, -1, :cfg.vocab_size].float())
                 routes.append(list(seen))
             err = max(err, float((lg[1] - lg[0]).abs().max()
@@ -2978,7 +3087,7 @@ def logit_error(got: dict, ref: dict) -> float:
 
 
 def hold_to_reference(got: dict, ref: dict, margins: dict,
-                      what: str) -> dict:
+                      what: str, strict: bool = True) -> dict:
     """Every served token against the reference's argmax along the same
     stream (each stream teacher-forced through `lm_forward`), at every
     position: where the reference's top-2 margin is clear they must be
@@ -2989,12 +3098,13 @@ def hold_to_reference(got: dict, ref: dict, margins: dict,
     reference's own bf16 forward (`reference_logits`; an MoE's routing
     steps show there). Counts positions (equal; different at an unclear
     margin), first tokens (clear; equal) and clear-margin differences,
-    which must be 0."""
+    which must be 0 (`strict`; else they are counted and listed in
+    n["bad"])."""
     n = dict(equal=0, unclear_diff=0, clear=0, first_clear=0,
-             first_equal=0, clear_diff=0)
+             first_equal=0, clear_diff=0, diff_ratio=0.0)
     bad = []
     for rid, toks in got.items():
-        arg, m, d16 = ref[rid]
+        arg, m, d16 = ref[rid][:3]
         for j, t in enumerate(toks):
             tol = max(margins[rid][j][2], MARGIN_HEADROOM * float(d16[j]))
             clear = float(m[j]) > tol
@@ -3007,12 +3117,19 @@ def hold_to_reference(got: dict, ref: dict, margins: dict,
                 n["equal"] += 1
             elif clear:
                 n["clear_diff"] += 1
-                bad.append((rid, j, t, int(arg[j]), float(m[j]), tol))
+                bad.append((rid, j, t, int(arg[j]), round(float(m[j]), 4),
+                            round(margins[rid][j][2], 4),
+                            round(MARGIN_HEADROOM * float(d16[j]), 4)))
             else:
                 n["unclear_diff"] += 1
-    check(not bad, f"{what}: {len(bad)} positions differ from the "
-                   f"reference's argmax at a clear margin (rid, position, "
-                   f"served, reference, margin, tolerance): {bad[:6]}")
+            if not same:
+                n["diff_ratio"] = max(n["diff_ratio"], float(m[j]) / tol)
+    n["bad"] = bad
+    check(not (bad and strict),
+          f"{what}: {len(bad)} positions differ from the reference's argmax "
+          f"at a clear margin (rid, position, served, reference, margin, "
+          f"the engine paths' tolerance, {MARGIN_HEADROOM} x the "
+          f"reference's bf16 change): {bad[:6]}")
     return n
 
 
@@ -3047,9 +3164,10 @@ def report_reference(what: str, cfg, streams: dict, ref: dict,
         print(f"{what} {w}: {pos} positions held to the reference argmax "
               f"along its own stream: {n['equal']} equal, {n['clear']} at "
               f"a clear margin, {n['unclear_diff']} differ at unclear "
-              f"margins, {n['clear_diff']} differ at clear ones; first "
-              f"tokens {n['first_equal']}/{n['first_clear']} equal where "
-              f"clear", flush=True)
+              f"margins, {n['clear_diff']} differ at clear ones (largest "
+              f"margin / tolerance where they differ {n['diff_ratio']:.3f});"
+              f" first tokens {n['first_equal']}/{n['first_clear']} equal "
+              f"where clear", flush=True)
     for layout, err in errs.items():
         check(err <= tol, f"{what} {layout}: logit error {err} above {tol}")
 
@@ -3501,6 +3619,618 @@ def dense_kernel_checks(cfg, prompts, shapes: dict) -> None:
           f"{sorted(shapes['gather'])} / {sorted(shapes['scatter'])}",
           flush=True)
 
+# ---------------------------------------------------------------------------
+# phase 13: shared experts, a MoE model whole (qwen2-moe-a2.7b)
+# ---------------------------------------------------------------------------
+
+SHARED_CHUNK_LAYERS = 6     # ep->tp in 4 chunks of 6 of the 24 layers
+SHARED_MONO_AT = 4          # tp->ep monolithic, prefills in flight
+SHARED_CHUNKED_AT = 10      # ep->tp chunked, decode between the chunks
+SHARED_LEAVES = ("shared_wg", "shared_wu", "shared_w2", "shared_gate")
+
+
+def shared_model():
+    """qwen2-moe-a2.7b whole: 24 layers, d_model 2048, 16/16 heads of 128,
+    60 routed experts top-4 of width 1408 and 4 shared ones (5632 wide
+    together), vocab 151936; bf16 (28.63 GB). capacity_factor 16 >= E /
+    top_k: no layout drops a token, so tp, ep and the reference compare."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.kvcache import CacheConfig
+    return (get_config("qwen2-moe-a2.7b").replace(capacity_factor=16.0),
+            CacheConfig(page_size=16, pages_ep=256, max_pages_per_req=32))
+
+
+def shared_parity_model():
+    """A small f32 MoE with shared experts and the head dim the attention
+    kernel takes."""
+    from repro_torch.configs import get_config
+    return get_config("qwen2-moe-a2.7b").reduced(
+        num_layers=2, d_model=128, num_heads=4, num_kv_heads=4, head_dim=64,
+        num_experts=8, top_k=2, d_expert=64, num_shared_experts=2,
+        vocab_size=512, capacity_factor=8.0)
+
+
+def plain_serve_kernels():
+    """Swap the serve step's kernels (#1, #2) for their plain torch
+    versions on the card, for a check only (the port itself never falls
+    back); returns the undo."""
+    import torch
+
+    from repro_torch.kernels.moe_gemm.ref import grouped_matmul_ref
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models import moe
+    from repro_torch.serving import steps
+    inner = steps.paged_attention, moe.grouped_matmul
+
+    def attention(q, k_pool, v_pool, block_table, kv_lens, *, q_offset,
+                  window=0):
+        return torch.stack([paged_attention_ref(
+            q[g], k_pool[g], v_pool[g], block_table[g], kv_lens[g],
+            q_offset=q_offset[g], window=window) for g in range(q.shape[0])])
+
+    steps.paged_attention, moe.grouped_matmul = attention, grouped_matmul_ref
+
+    def undo():
+        steps.paged_attention, moe.grouped_matmul = inner
+    return undo
+
+
+def kernels_against_plain(eng, reqs, stream: dict, what: str) -> None:
+    """A measurement: the engine's stream teacher-forced in its active
+    layout through the kernels and through their plain versions (bf16
+    both, differing in summation order only): how far the kernels move
+    each top-2 margin at this model's depth, and at how many positions the
+    argmax changes (ROADMAP C17)."""
+    chunk = eng.ex.prefill_chunk
+    t0 = time.time()
+    base = teacher_forced(eng, reqs, stream, chunk)
+    undo = plain_serve_kernels()
+    try:
+        plain = teacher_forced(eng, reqs, stream, chunk, ids=base)
+    finally:
+        undo()
+    d = [(abs(m - plain[rid][j]), rid, j)
+         for rid, v in base.items() for j, (m, _, _) in enumerate(v)]
+    flips = sum(plain[rid][j] < 0 < m for rid, v in base.items()
+                for j, (m, _, _) in enumerate(v))
+    print(f"{what}: the {eng.active} stream teacher-forced through the "
+          f"kernels and through their plain versions in "
+          f"{time.time() - t0:.1f} s: top-2 margins move by at most "
+          f"{max(d)[0]:.4f} (request {max(d)[1]}, position {max(d)[2]}), "
+          f"mean {sum(x[0] for x in d) / len(d):.4f}; the argmax changes "
+          f"at {flips} of {len(d)} positions", flush=True)
+
+
+def report_shared_reference(what: str, cfg, streams: dict, ref: dict,
+                            margins: dict, firsts: dict, ref_first: dict,
+                            bf16_err: float, tf_tokens: dict, pinned: dict,
+                            tf_first: dict, pinned_first: dict) -> None:
+    """The reference phase's rule where it holds at 24 MoE layers, and
+    what takes its place where it does not (ROADMAP C17):
+    - the engines' last-prompt-position logits within max(LOGIT_TOL, 2 x
+      the reference's own bf16 error) of fp32 `lm_forward` (C16);
+    - every run's served tokens against the fp32 argmax along its stream:
+      the margin rule of C13/C16 is counted, and the positions that
+      differ, clear or not, must number at most twice those where the
+      reference's own bf16 forward parts from its fp32 one along the same
+      stream (the bf16 floor, C16's factor);
+    - the engine's own tokens along each stream (teacher-forced) against
+      the reference with the engine's routing pinned: the margin rule of
+      C13/C16 unchanged, 0 clear-margin differences, and the logits at the
+      last prompt position within LOGIT_TOL, a dense model's limit."""
+    tol = max(LOGIT_TOL, 2 * bf16_err)
+    errs = {lo: logit_error(fl, ref_first) for lo, fl in firsts.items()}
+    for lo, err in errs.items():
+        print(f"{what} {lo}: last-prompt-position logits against the "
+              f"reference, max |d| / max |logit| = {err:.4e} (tolerance "
+              f"{tol:.4e})", flush=True)
+    floor = {}
+    for w, got in streams.items():
+        n = hold_to_reference(got, ref[w], margins[w], f"{what} {w}",
+                              strict=False)
+        pos = sum(map(len, got.values()))
+        differ = pos - n["equal"]
+        floor[w] = (differ, int(sum(int((ref[w][rid][3] != ref[w][rid][0])
+                                        .sum()) for rid in got)))
+        print(f"{what} {w}: {pos} served positions against the fp32 argmax "
+              f"along their own stream: {differ} differ "
+              f"({n['unclear_diff']} at unclear margins, {n['clear_diff']} "
+              f"at clear ones by the margin rule: {n['bad'][:4]}); the "
+              f"reference's own bf16 forward differs at {floor[w][1]}; "
+              f"{n['clear']} clear, first tokens {n['first_equal']}/"
+              f"{n['first_clear']} equal where clear", flush=True)
+    for w in streams:
+        n = hold_to_reference(tf_tokens[w], pinned[w], margins[w],
+                              f"{what} {w} pinned")
+        pos = sum(map(len, tf_tokens[w].values()))
+        print(f"{what} {w}: the engine's {pos} teacher-forced tokens "
+              f"against the reference with its routing pinned: "
+              f"{n['equal']} equal, {n['clear']} at a clear margin, "
+              f"{n['unclear_diff']} differ at unclear margins, "
+              f"{n['clear_diff']} at clear ones", flush=True)
+    err = logit_error(tf_first, pinned_first)
+    print(f"{what}: the engine's last-prompt-position logits against the "
+          f"reference with its routing pinned, max |d| / max |logit| = "
+          f"{err:.4e} (tolerance {LOGIT_TOL})", flush=True)
+    check(err <= LOGIT_TOL, f"{what} pinned: logit error {err}")
+    for w, (differ, bf16) in floor.items():
+        check(differ <= 2 * bf16, f"{what} {w}: {differ} served tokens "
+                                  f"part from the fp32 argmax, more than "
+                                  f"twice the {bf16} of its own bf16 forward")
+    for lo, err in errs.items():
+        check(err <= tol, f"{what} {lo}: logit error {err} above {tol}")
+
+
+def memory_line(what: str) -> None:
+    """The device's allocated and peak bytes now; the peak must stay under
+    the card's memory."""
+    import torch
+    torch.cuda.synchronize()
+    total = torch.cuda.get_device_properties(0).total_memory
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{what}: device {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+          f"peak {peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB",
+          flush=True)
+    check(peak < total, f"{what}: peak {peak} above the card's {total}")
+
+
+def decode_step_bound(cfg, params, reqs, stream: dict, lay, kv_bytes_tok,
+                      what: str) -> float:
+    """A decode step's bytes bound from the experts its counts touch: the
+    fp32 reference's routing of the served stream gives, for decode step j
+    (every request's output token j-1 fed back) and each layer, the set of
+    experts the 8 requests reach; a step reads those experts' weights once
+    (the GEMM reads no weight of an expert without rows), every non-expert
+    weight once, and each request's live K/V once. Returns the mean over
+    the steps of that bound in ms, and prints it."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import lm_forward
+    inner, seen = moe.route, []
+
+    def route(c, w, x):
+        out = inner(c, w, x)
+        seen.append(out[1].cpu())
+        return out
+
+    L, D, I = cfg.num_layers, cfg.d_model, cfg.d_expert
+    n_new = min(len(stream[r.rid]) for r in reqs)
+    touched = torch.zeros((n_new - 1, L, cfg.num_experts), dtype=torch.bool)
+    moe.route = route
+    try:
+        for r in reqs:
+            seen.clear()
+            P = len(r.prompt)
+            seq = list(r.prompt) + list(stream[r.rid])
+            with torch.inference_mode():
+                lm_forward(cfg, params, torch.tensor([seq[:-1]],
+                                                     device="cuda"), lay=lay)
+            for li, eids in enumerate(seen):
+                rows = eids[P:P + n_new - 1]              # (steps, k)
+                touched[torch.arange(n_new - 1)[:, None], li, rows] = True
+    finally:
+        moe.route = inner
+    per = touched.sum(-1).float()                           # (steps, L)
+    expert_b = 3 * D * I * cfg.param_dtype.itemsize
+    lp = params["layers"]
+    other = tree_bytes([{k: v for k, v in lp["moe"].items()
+                         if k not in ("w13", "w2")}, lp["attn"],
+                        lp["attn_norm"], lp["mlp_norm"], params["lm_head"]])
+    kv = sum(len(r.prompt) + j + 1 for r in reqs for j in range(n_new - 1)) \
+        * kv_bytes_tok / (n_new - 1)
+    experts = per.sum(-1).mean().item() * expert_b
+    nbytes = experts + other + kv
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"{what}: decode step bound from the experts its counts touch: "
+          f"{per.mean():.2f} of {cfg.num_experts} experts a layer on average "
+          f"(min {int(per.min())}, max {int(per.max())}) over {n_new - 1} "
+          f"steps of {len(reqs)} requests, {experts / 1e9:.3f} GB "
+          f"of experts + {other / 1e9:.3f} GB of other weights + "
+          f"{kv / 1e9:.3f} GB of K/V read once = {nbytes / 1e9:.3f} GB: "
+          f"{b_ms:.3f} ms a step", flush=True)
+    return b_ms
+
+
+def shared_kernel_checks(cfg, prompts, shapes: dict, store: dict) -> None:
+    """#1 and #2 at this model's shapes within bf16 tolerance, timed
+    against their bound, plain version and library call; #4/#5 bit-equal at
+    the switches' staging shapes; #7-#10 bit-equal to their plain versions
+    on one layer's slice of the live store (ep view), timed the same way."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.expert_reshard import kernel as erk
+    from repro_torch.kernels.expert_reshard import ref as err
+    from repro_torch.kernels.moe_gemm.kernel import grouped_matmul_cuda
+    from repro_torch.kernels.moe_gemm.ref import grouped_matmul_ref
+    from repro_torch.kernels.paged_attention.kernel import \
+        paged_attention_cuda
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    G, D, E, I = 2, cfg.d_model, cfg.num_experts, cfg.d_expert
+    kv_hi = max(map(len, prompts)) + 32
+    for name, kw in dense_attention_cases(cfg, G, 8, 128, kv_hi):
+        a = attention_case(gen, **kw)
+        args = (a["q"], a["k_pool"], a["v_pool"], a["block_table"],
+                a["kv_lens"], a["q_offset"])
+        got = paged_attention_cuda(*args, window=0)
+        e_row = row_rel_err(got, attention_plain(a))
+        check(e_row <= BF16_TOL, f"shared: attention {name} row error "
+                                 f"{e_row} above {BF16_TOL}")
+        ms = cuda_ms(lambda: paged_attention_cuda(*args, window=0))
+        plain_ms = cuda_ms(lambda: attention_plain(a), iters=10, warmup=1)
+        qd, kd, vd, mask = sdpa_inputs(a)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask))
+        b_ms, b_by = bound(*attention_work(a), a["q"].dtype)
+        print(f"shared: attention {name} ({kw['G']} ranks x {kw['B']} x "
+              f"{kw['Sq']} queries x {kw['H']} heads, {kw['K']} KV heads, "
+              f"group 1, kv {kw['kv_lo']}-{kw['kv_hi']}) row error "
+              f"{e_row:.3e} <= {BF16_TOL}; ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.4f} "
+              f"({b_by})", flush=True)
+        del a, args, got, qd, kd, vd, mask
+    Wt, We = 2 * I // G, 2 * I            # w13 width a rank: tp, ep
+    for name, kw in (("tp_w13_decode", dict(E=G * E, C=8, D=D, W=Wt)),
+                     ("tp_w2_decode", dict(E=G * E, C=8, D=I // G, W=D)),
+                     ("ep_w13_decode", dict(E=E, C=32, D=D, W=We)),
+                     ("ep_w2_decode", dict(E=E, C=32, D=I, W=D)),
+                     ("tp_w13_prefill", dict(E=G * E, C=128, D=D, W=Wt))):
+        x, w, cnt, rows = gmm_case(gen, **kw)
+        got = grouped_matmul_cuda(x, w, cnt)
+        e_abs, e_rel, ok = max_errs(got, grouped_matmul_ref(x, w, cnt))
+        check(ok and bool(torch.isfinite(got).all()),
+              f"shared: gmm {name}: |err| {e_abs} above bf16 tolerance")
+        ms = cuda_ms(lambda: grouped_matmul_cuda(x, w, cnt))
+        plain_ms = cuda_ms(lambda: grouped_matmul_ref(x, w, cnt), iters=10,
+                           warmup=1)
+        wt = w.transpose(1, 2)
+        lib_ms = cuda_ms(lambda: torch.bmm(x, wt))
+        Eg, C, Dk = x.shape
+        W = w.shape[1]
+        active = int((cnt > 0).sum())
+        nb = (rows * Dk + active * W * Dk + Eg * C * W) * x.element_size()
+        b_ms, b_by = bound(nb, 2.0 * rows * W * Dk, x.dtype)
+        print(f"shared: grouped_matmul {name}: E={Eg} C={C} D={Dk} W={W} "
+              f"rows={rows} max_abs_err={e_abs:.3e} max_rel_err={e_rel:.3e} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bmm_ms={lib_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) = {b_ms / ms:.1%} of bound",
+              flush=True)
+        del x, w, wt, cnt, got
+    n_shapes = rows_kernels_at(shapes, "shared")
+    check(n_shapes > 0, "shared: no staging shape recorded")
+    print(f"shared: gather_pages_rows / scatter_pages_rows bit-equal to their "
+          f"plain versions at the switches' {n_shapes} staging shapes",
+          flush=True)
+    # #7-#10 on layer 0 of the store as the direct movers fold it: both
+    # ranks' experts in the expert dim
+    s13 = store["w13"][0].reshape(G * (E // G), 2 * I, D)
+    s2 = store["w2"][0].reshape(G * (E // G), D, I)
+    for name, kern, plain, x in (
+            ("pack_peer_chunks", lambda x: erk.pack_peer_chunks_cuda(x, G),
+             lambda x: err.pack_peer_chunks_ref(x, G), s13),
+            ("pack_width_chunks", lambda x: erk.pack_width_chunks_cuda(x, G),
+             lambda x: err.pack_width_chunks_ref(x, G), s2),
+            ("interleave_shards", erk.interleave_shards_cuda,
+             err.interleave_shards_ref, err.pack_peer_chunks_ref(s13, G)),
+            ("interleave_width_shards", erk.interleave_width_shards_cuda,
+             err.interleave_width_shards_ref,
+             err.pack_width_chunks_ref(s2, G))):
+        got = kern(x)
+        check(torch_equal(got.view(torch.int16), plain(x).view(torch.int16)),
+              f"shared: {name} differs from its plain version at one layer "
+              f"{tuple(x.shape)}")
+        ms = cuda_ms(lambda: kern(x), iters=10)
+        plain_ms = cuda_ms(lambda: plain(x), iters=10, warmup=1)
+        b_ms = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        print(f"shared: {name} at one layer {tuple(x.shape)} bit-equal to "
+              f"its plain version; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} (bytes) = {b_ms / ms:.1%} of bound",
+              flush=True)
+        del got
+    check(torch_equal(erk.interleave_shards_cuda(
+        erk.pack_peer_chunks_cuda(s13, G)).view(torch.int16),
+        s13.view(torch.int16)), "shared: w13 pack/interleave round trip")
+
+
+def phase_shared(results: dict) -> None:
+    """qwen2-moe-a2.7b at full width and depth (24 layers, 60 routed + 4
+    shared experts), bf16, seeded `init_params` on the card, G=2,
+    `EngineConfig()` with the fused loop of 8 from graphs and chunks of 6
+    layers. The engine is built, then the caller's routed experts are
+    freed (the store is the one copy; bank 1 is allocated after). The
+    serve phase's 8 requests in tp, in ep, and once more through a
+    monolithic tp->ep switch (in place) and an ep->tp one in 4 chunks onto
+    bank 1 with decode steps between them: the store equals the packing of
+    a host copy of the caller's experts after every switch, the K/V of
+    every live request comes through byte-exact, nothing is captured after
+    warmup, and the path launches #1, #2, #4, #5 and #7-#10. The
+    reference is `lm_forward` in fp32 over the same weights, the routed
+    ones read through the store's active (ep) view; every run's tokens are
+    held to it as in the reference phase. Then the kernels at this
+    model's shapes (shared_kernel_checks)."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.moe import (make_expert_layout, pack_experts,
+                                        pack_w13)
+    from repro_torch.models.registry import (count_params_actual,
+                                             count_params_analytic,
+                                             init_params)
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.request import Request
+
+    parity_check(shared_parity_model(), "shared parity")
+    cfg, cc = shared_model()
+    L, E, D, G, N = (cfg.num_layers, cfg.num_experts, cfg.d_model, 2, 8)
+    Fs = cfg.num_shared_experts * cfg.d_expert
+    prompts = serve_prompts(cfg)
+
+    def trace(rid0=0):
+        return [Request(rid=rid0 + i, prompt=list(p), max_new_tokens=32,
+                        arrival_s=0.0) for i, p in enumerate(prompts)]
+
+    t0 = time.time()
+    params = init_params(cfg, SEED, device="cuda")
+    n_params = count_params_actual(params)
+    check(n_params == count_params_analytic(cfg),
+          f"shared: {n_params} parameters drawn, "
+          f"{count_params_analytic(cfg)} counted")
+    torch.cuda.synchronize()
+    print(f"shared config: {cfg.name} full width and depth, num_layers={L}, "
+          f"d_model={D}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+          f"{cfg.dh}, {E} routed experts top-{cfg.top_k} of width "
+          f"{cfg.d_expert} + {cfg.num_shared_experts} shared ({Fs} wide), "
+          f"vocab {cfg.vocab_size}, capacity_factor "
+          f"{cfg.capacity_factor}, bf16: count_params_actual {n_params} "
+          f"({n_params / 1e9:.2f} B; "
+          f"{count_params_analytic(cfg, True) / 1e9:.2f} B active), "
+          f"init_params on the card {time.time() - t0:.2f} s", flush=True)
+    moe_g = params["layers"]["moe"]
+    t0 = time.time()
+    host = {k: torch.empty(moe_g[k].shape, dtype=moe_g[k].dtype,
+                           pin_memory=True).copy_(moe_g[k])
+            for k in ("w13", "w2")}
+    store_bytes = sum(v.numel() * v.element_size() for v in host.values())
+    print(f"shared: the caller's routed experts {store_bytes} bytes "
+          f"({store_bytes / 2**30:.2f} GiB) copied to pinned host memory in "
+          f"{time.time() - t0:.2f} s (the store's oracle)", flush=True)
+    memory_line("shared memory, params on the card")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = MoebiusEngine(cfg, (1, G), cc, params_global=params,
+                        ecfg=EngineConfig(start_layout="tp",
+                                          layouts=("tp", "ep"),
+                                          prefill_chunk=128, seed=SEED,
+                                          decode_steps=N,
+                                          chunk_layers=SHARED_CHUNK_LAYERS,
+                                          policy=static_policy()),
+                        device="cuda")
+    t_build = time.time() - t0
+    memory_line("shared memory, engine built beside the caller's experts")
+    before = torch.cuda.memory_allocated()
+    del moe_g["w13"], moe_g["w2"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = before - torch.cuda.memory_allocated()
+    check(freed >= store_bytes, f"shared: freeing the caller's experts gave "
+                                f"back {freed} of {store_bytes} bytes")
+    memory_line("shared memory, the caller's experts freed")
+    ex, rt = eng.ex, eng.ex.rt
+    t0 = time.time()
+    eng.warmup()
+    t_warm = time.time() - t0
+    memory_line("shared memory, warmed (bank 1 and the graphs)")
+    check(ex.banks == 2 and all(set(b) == {"w13", "w2"}
+                                for b in ex._stores),
+          f"shared: banks {[sorted(b) for b in ex._stores]}")
+    for key, e in rt.executables.items():
+        check(e.launches.get("paged_attention", 0) > 0
+              and e.launches.get("grouped_matmul", 0) > 0,
+              f"shared: graph {key} launches {e.launches}")
+    tpm, epm = (ex.packs[lo]["layers"]["moe"] for lo in ex.layouts)
+    check(tpm["shared_wg"].shape == (L, G, Fs // G, D)
+          and tpm["shared_w2"].shape == (L, G, D, Fs // G)
+          and tpm["shared_gate"].shape == (L, D),
+          "shared: the tp pack's shared experts are not rank-major at G")
+    check(all(epm[k].data_ptr() == moe_g[k].data_ptr()
+              for k in SHARED_LEAVES),
+          "shared: the ep pack copies the shared experts")
+    pool = rt.pool_bytes()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"shared: engine built in {t_build:.2f} s and warmed in "
+          f"{t_warm:.2f} s: {len(rt.executables)} graphs (tp and ep, rungs "
+          f"{ex.ladder}, single steps and the fused loop of {N}, both "
+          f"banks), each with attention and the expert GEMM; graph pool "
+          f"{pool / 2**20:.1f} MiB = {pool / total:.2%} of the card; store "
+          f"{store_bytes / 2**30:.2f} GiB a bank, second bank "
+          f"{ex.second_bank_bytes() / 2**30:.2f} GiB with its K/V",
+          flush=True)
+    for lo in ex.layouts:
+        sh = [ex.packs[lo]["layers"]["moe"][k] for k in SHARED_LEAVES]
+        print(f"shared weights {lo}: decode pack {tree_bytes([ex.packs[lo]])}"
+              f" bytes ({tree_bytes([ex.packs[lo]]) / 2**30:.2f} GiB), of "
+              f"which shared experts {tree_bytes(sh)} bytes (shapes "
+              f"{[tuple(t.shape) for t in sh]})", flush=True)
+    lays = {k: make_expert_layout(E, G, k) for k in ("tp", "ep")}
+
+    def store_is(layout: str) -> bool:
+        st = ex._experts
+        for li in range(L):
+            w13 = host["w13"][li].cuda(non_blocking=True)
+            w2 = host["w2"][li].cuda(non_blocking=True)
+            if not (torch_equal(st["w13"][li], pack_w13(w13, lays[layout]))
+                    and torch_equal(st["w2"][li],
+                                    pack_experts(w2, lays[layout], 2))):
+                return False
+        return True
+
+    check(store_is("tp"), "shared: the tp store is not the packing of the "
+                          "caller's experts")
+
+    shapes = {"gather": set(), "scatter": set()}
+    undo = record_staging(shapes)
+    kv_bytes_tok = (2 * L * cfg.num_kv_heads * cfg.dh
+                    * cfg.param_dtype.itemsize)
+    kv_bytes_page = cc.page_size * kv_bytes_tok
+    rows = ("gather_pages_rows", "scatter_pages_rows")
+    streams, per_layout, switch_log = {}, {}, []
+    hook_s = [0.0]
+    dispatch.reset_counts()
+    replays0 = rt.replayed_launches()
+
+    def live_switch(target, chunks):
+        check(len(eng.sched.live()) > 0, f"shared: nothing live at ->{target}")
+        t_chk = time.time()
+        snap = kv_written(eng)
+        hook_s[0] += time.time() - t_chk
+        bank0 = ex._bank
+        ptrs = [v.data_ptr() for v in ex._stores[bank0].values()]
+        c0 = {k: dispatch.calls(k) for k in SWITCH_KERNELS}
+        eng.ecfg.chunk_layers = chunks
+        check(eng.execute_switch(target), f"shared: ->{target} aborted")
+        rec = eng.switch_records[-1]
+        grew = {k: dispatch.calls(k) - c0[k] for k in c0}
+        check(all(grew[k] > 0 for k in rows), f"shared: {rec.direction} "
+                                               f"launched {grew}")
+        if chunks:
+            check(ex._bank != bank0, "shared: the chunked switch stayed on "
+                                     "its bank")
+        else:
+            check(ex._bank == bank0 and ptrs == [
+                v.data_ptr() for v in ex._stores[bank0].values()],
+                "shared: the monolithic switch moved the store")
+        t_chk = time.time()
+        n = check_kv_moved(snap, kv_written(eng), f"shared {rec.direction}")
+        check(store_is(target), f"shared {rec.direction}: the store is not "
+                                f"the {target} packing of the caller's "
+                                f"experts")
+        hook_s[0] += time.time() - t_chk
+        switch_log.append((rec, grew, n))
+
+    try:
+        for layout, rid0, hooks in (
+                ("tp", 0, None), ("ep", 100, None),
+                ("switched", 200, {SHARED_MONO_AT: lambda: live_switch("ep",
+                                                                        0),
+                                   SHARED_CHUNKED_AT: lambda: live_switch(
+                                       "tp", SHARED_CHUNK_LAYERS)})):
+            start = "tp" if layout == "switched" else layout
+            if str(eng.active) != start:
+                eng.ecfg.chunk_layers = 0
+                check(eng.execute_switch(start), f"shared: idle ->{start}")
+            hook_s[0] = 0.0
+            out, wall, log = timed_serve(eng, trace(rid0), hooks)
+            eng.clear_prefix_cache()
+            streams[layout] = {rid - rid0: t for rid, t in out.items()}
+            toks = sum(map(len, out.values()))
+            check(len(out) == 8 and toks == 256 and all(
+                0 <= t < cfg.vocab_size for v in out.values() for t in v),
+                f"shared {layout}: {len(out)} requests, {toks} tokens")
+            dec = [ms / N for ms, d, _ in log if d]
+            per_layout[layout] = (toks / (wall - hook_s[0]),
+                                  sum(dec) / max(1, len(dec)), len(dec),
+                                  len(log))
+    finally:
+        undo()
+    late = rt.late_builds
+    check(late == 0, f"shared: {late} captures after warmup")
+    n = {k: dispatch.calls(k) for k in ("paged_attention", "grouped_matmul")
+         + SWITCH_KERNELS}
+    replayed = rt.replayed_launches() - replays0
+    check(all(v > 0 for v in n.values())
+          and replayed.get("paged_attention", 0) > 0
+          and replayed.get("grouped_matmul", 0) > 0,
+          f"shared: launches {n}, replayed {dict(replayed)}")
+    for k, v in n.items():
+        results["launches"][k] = results["launches"].get(k, 0) + v
+    check([r.direction for r, _, _ in switch_log] == ["tp_to_ep", "ep_to_tp"]
+          and switch_log[1][0].chunks == L // SHARED_CHUNK_LAYERS,
+          f"shared: switches "
+          f"{[(r.direction, r.chunks) for r, _, _ in switch_log]}")
+    for layout, (tok_s, dec_ms, n_dec, iters) in per_layout.items():
+        print(f"shared {layout}: 8 requests, 256 tokens, {iters} iterations "
+              f"-> {tok_s:.2f} tok/s (the switched run's store and K/V "
+              f"checks left out, the switches in); decode-only "
+              f"{dec_ms:.3f} ms a token (mean of {n_dec} fused iterations "
+              f"of {N})", flush=True)
+    for rec, grew, n_kv in switch_log:
+        nbytes = 2 * store_bytes + 2 * (rec.kv_pages + rec.delta_pages) \
+            * kv_bytes_page
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"shared switch {rec.direction}: chunks={rec.chunks} "
+              f"pause_s={rec.pause_s:.4f} total_s={rec.total_s:.4f} "
+              f"weights_s={rec.weights_s:.4f} kv_s={rec.kv_s:.4f} "
+              f"plan_s={rec.plan_s:.4f} kv_pages={rec.kv_pages} "
+              f"delta_pages={rec.delta_pages} live={rec.live_requests}; "
+              f"{nbytes / 1e9:.3f} GB (the store and the K/V pages read and "
+              f"written once): bound {b_ms:.3f} ms, movers "
+              f"{(rec.weights_s + rec.kv_s) * 1e3 / b_ms:.2f}x it; "
+              f"launches {grew}; store byte-exact, K/V of {n_kv} live "
+              f"requests byte-exact", flush=True)
+    print(f"shared: launches on the path {n}; graph replays "
+          f"{dict(replayed)}; 0 captures after warmup", flush=True)
+    memory_line("shared memory, after the serve")
+
+    # the reference: the engine's first logits, its routing along each
+    # stream and its margins, then lm_forward
+    kernels_against_plain(eng, trace(), streams["tp"], "shared")
+    firsts = {"tp": engine_first_logits(eng, trace(), streams["tp"])}
+    # the engine's routing along each stream (and, every stream starting
+    # from the same prompts, one set of first logits), for the reference
+    # with the routing pinned
+    routes, tf_first, tf_tokens = {}, {}, {}
+    t0 = time.time()
+    for w, st in streams.items():
+        routes[w] = {}
+        tf = teacher_forced(eng, trace(), st, eng.ex.prefill_chunk,
+                            first=tf_first if w == "tp" else None,
+                            routes=routes[w])
+        tf_tokens[w] = {rid: [ids[0] for _, _, ids in v]
+                        for rid, v in tf.items()}
+
+    def to_ep():
+        eng.ecfg.chunk_layers = 0
+        check(eng.execute_switch("ep"), "shared: the idle tp->ep switch")
+
+    margins = stream_margins(eng, trace(), streams, to_ep)
+    check(all(tf_tokens[w][rid] == [a for a, _, _ in v]
+              for w, mw in margins.items() for rid, v in mw.items()),
+          "shared: two teacher-forced passes of one stream differ")
+    firsts["ep"] = engine_first_logits(eng, trace(), streams["ep"])
+    print(f"shared: routes and margins teacher-forced through the engine "
+          f"in {time.time() - t0:.1f} s", flush=True)
+    check(store_is("ep"), "shared: the store after the idle tp->ep switch")
+    store, lay = dict(ex._experts), ex.active.expert_layout(cfg, G)
+    del eng, ex, rt, tpm, epm, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_params = {**params, "layers": {**params["layers"], "moe": {
+        **params["layers"]["moe"], **store}}}
+    memory_line("shared memory, engine freed, its store kept (ep view)")
+    shared_kernel_checks(cfg, prompts, shapes, store)
+    torch.cuda.reset_peak_memory_stats()
+    ref, ref_first = reference_logits(cfg, ref_params, trace(), streams,
+                                      "shared", lay=lay)
+    pinned, pinned_first = reference_logits(cfg, ref_params, trace(),
+                                            streams, "shared", lay=lay,
+                                            routes=routes)
+    bf16_err, _, _ = bf16_baseline(cfg, ref_params, trace(), "shared",
+                                   lay=lay)
+    step_ms = decode_step_bound(cfg, ref_params, trace(), streams["tp"], lay,
+                                kv_bytes_tok, "shared")
+    for layout, (_, dec_ms, _, _) in per_layout.items():
+        print(f"shared {layout}: decode-only {dec_ms:.3f} ms a token = "
+              f"{dec_ms / step_ms:.2f}x the step's bound", flush=True)
+    report_shared_reference("shared", cfg, streams, ref, margins, firsts,
+                            ref_first, bf16_err, tf_tokens, pinned,
+                            tf_first, pinned_first)
+    memory_line("shared memory, after the reference")
+    del params, ref_params, store
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them: every
     number this script prints stands beside them."""
@@ -3551,7 +4281,8 @@ def main() -> int:
               ("prefix", lambda: phase_prefix(results)),
               ("elastic", lambda: phase_elastic(results)),
               ("reference", lambda: phase_reference(results)),
-              ("dense", lambda: phase_dense(results))]
+              ("dense", lambda: phase_dense(results)),
+              ("shared", lambda: phase_shared(results))]
     results: dict = {"launches": {}}
     t_run = time.time()
     for name, fn in phases:

@@ -286,6 +286,30 @@ def mlp_rank_major(mlp: dict, G: int) -> dict:
     return out
 
 
+def shared_rank_major(moe: dict, G: int) -> dict:
+    """Stacked shared-expert weights -> rank-major over a G-rank group, as
+    the TP expert rule shards them (repro's decode_pack_specs): shared_wg
+    and shared_wu (L, F, D) -> (L, G, F/G, D), shared_w2 (L, D, F) ->
+    (L, G, D, F/G), materialized; shared_gate stays replicated. Control
+    plane: a pack holds them, the expert store does not, and no switch
+    moves them. The other leaves pass through."""
+    if "shared_wg" not in moe:
+        return moe
+    Fs = moe["shared_wg"].shape[-2]
+    if Fs % G:
+        raise ValueError(f"shared-expert width {Fs} does not split over "
+                         f"G={G} ranks")
+    out = dict(moe)
+    for k in ("shared_wg", "shared_wu"):
+        L, _, D = moe[k].shape
+        out[k] = moe[k].reshape(L, G, Fs // G, D).contiguous()
+    w2 = moe["shared_w2"]
+    L, D, _ = w2.shape
+    out["shared_w2"] = torch.movedim(w2.reshape(L, D, G, Fs // G), 2,
+                                     1).contiguous()
+    return out
+
+
 def pack_params(cfg: ModelConfig, params: dict, layout: str, G: int,
                 expert_G: int | None = None) -> dict:
     """Init-time global params -> stored form for `layout` on a G-rank

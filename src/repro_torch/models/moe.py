@@ -14,6 +14,10 @@ Two compute paths, as in `repro`:
     grouped-GEMM kernel nor the decode paths, so it stays independent of
     what it is used to check;
   * `moe_decode_tp` / `moe_decode_ep` — the per-rank serve paths.
+Shared experts (`shared_expert_forward`) follow each path: added after the
+combine in the global math, width-sharded under TP (a partial the caller
+psums with the routed one), replicated under EP over the rank's own
+tokens. They are plain matrix products, as in repro, outside any kernel.
 
 The per-rank decode paths take the stacked form of `repro`'s shard_map
 locals: every tensor carries the rank dim G first (distributed/ranks.py).
@@ -32,7 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed import ranks
 from repro_torch.kernels.moe_gemm.ops import grouped_matmul
-from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.models.common import ModelConfig, dense_init, matmul
 
 
 # ---------------------------------------------------------------------------
@@ -117,22 +121,24 @@ def unpack_w13(w: torch.Tensor, lay: ExpertLayout, E: int) -> torch.Tensor:
 def init_moe(cfg: ModelConfig, gen: torch.Generator, layers: int | None,
              device) -> dict:
     """Global-layout expert params, repro's tree and fan-in scales
-    (packing to rank-major happens in core/layouts)."""
-    _check_no_shared(cfg)
+    (packing to rank-major happens in core/layouts). With shared experts
+    of aggregate width F = num_shared_experts * d_expert: shared_wg and
+    shared_wu (L, F, D), shared_w2 (L, D, F), shared_gate (L, D)."""
     L = () if layers is None else (layers,)
     D, E, I = cfg.d_model, cfg.num_experts, cfg.d_expert
-    return {
+    pd = cfg.param_dtype
+    p = {
         "router": dense_init(gen, L + (D, E), D, torch.float32, device),
-        "w13": dense_init(gen, L + (E, 2 * I, D), D, cfg.param_dtype, device),
-        "w2": dense_init(gen, L + (E, D, I), I, cfg.param_dtype, device),
+        "w13": dense_init(gen, L + (E, 2 * I, D), D, pd, device),
+        "w2": dense_init(gen, L + (E, D, I), I, pd, device),
     }
-
-
-def _check_no_shared(cfg: ModelConfig) -> None:
     if cfg.num_shared_experts:
-        raise NotImplementedError(
-            "shared experts are not ported yet (ROADMAP A1: shared experts "
-            "and qwen2-moe-a2.7b)")
+        Fs = cfg.num_shared_experts * I
+        p["shared_wg"] = dense_init(gen, L + (Fs, D), D, pd, device)
+        p["shared_wu"] = dense_init(gen, L + (Fs, D), D, pd, device)
+        p["shared_w2"] = dense_init(gen, L + (D, Fs), Fs, pd, device)
+        p["shared_gate"] = dense_init(gen, L + (D,), D, pd, device)
+    return p
 
 
 def capacity(T: int, cfg: ModelConfig, factor: float | None = None) -> int:
@@ -228,8 +234,8 @@ def moe_ffn_global(cfg: ModelConfig, p: dict, x: torch.Tensor,
     one-hot einsums: each kept entry's token is written to its slot of an
     (E, C, D) buffer, the experts run on every rank's width slice with
     fp32 accumulation, the width partials sum, and each token gathers its
-    kept slots back, gate-weighted."""
-    _check_no_shared(cfg)
+    kept slots back, gate-weighted. Shared experts, when the config has
+    them, add after the combine (p's global shared_* leaves)."""
     T, D = x.shape
     E = cfg.num_experts
     G, ep, tp = lay.G, lay.ep, lay.tp_inner
@@ -259,8 +265,29 @@ def moe_ffn_global(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     # combine: each token's kept entries, gate-weighted, in fp32
     got = _gather_rows(Y[None], slot[None])[0].view(T, k, D).float()
-    out = (got * (gates * keep)[..., None]).sum(1)
-    return out.to(cdt).to(x.dtype)
+    out = (got * (gates * keep)[..., None]).sum(1).to(cdt)
+    if cfg.num_shared_experts:
+        out = out + shared_expert_forward(cfg, p, x)
+    return out.to(x.dtype)
+
+
+def shared_expert_forward(cfg: ModelConfig, p: dict,
+                          x: torch.Tensor) -> torch.Tensor:
+    """x (..., D) -> (..., D) in x's dtype: silu(x wg^T) * (x wu^T), down
+    through w2, scaled by sigmoid(x . gate). repro's casts: the products
+    in the promoted dtype of x and the weight, SiLU * up in f32, back to
+    x's dtype for w2, the gate's sigmoid in f32.
+
+    Works on global weights (F, D) / (D, F) and on stacked rank-major
+    width slices (G, F/G, D) / (G, D, F/G) against x (G, T, D) alike: gate,
+    up and down are sharded on the same F, so a width slice yields a
+    partial sum the caller psums (the gate is replicated)."""
+    hg = matmul(x, p["shared_wg"].transpose(-1, -2))
+    hu = matmul(x, p["shared_wu"].transpose(-1, -2))
+    y = (F.silu(hg.float()) * hu.float()).to(x.dtype)
+    y = matmul(y, p["shared_w2"].transpose(-1, -2))
+    g = torch.sigmoid(matmul(x, p["shared_gate"]).float())
+    return (y.float() * g[..., None]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -301,9 +328,10 @@ def moe_decode_tp(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                   trim: bool = True) -> torch.Tensor:
     """TP decode, stacked: x (G, T, D) replicated over ranks; w13/w2 are the
     ranks' (E, W_loc) slices, (G, E, W13_loc, D) / (G, E, D, W2_loc).
-    Returns (G, T, D) *partial* sums — the caller psums them. `trim`: see
+    Returns (G, T, D) *partial* sums — the caller psums them. Shared
+    experts are the ranks' width slices too, (G, F/G, D) / (G, D, F/G):
+    their partial adds to the routed one before that psum. `trim`: see
     `_buffer_rows` (False: buffers of C rows, no host read)."""
-    _check_no_shared(cfg)
     G, T, D = x.shape
     E = cfg.num_experts
     C = capacity(T, cfg, cap_factor)
@@ -325,7 +353,10 @@ def moe_decode_tp(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     got = _gather_rows(y.reshape(G, E * Cb, D), slot).reshape(G, T, k, D)
     got = got.float()
     wgt = (gates * keep_k)[..., None]
-    return (got * wgt).sum(2).to(cfg.compute_dtype)
+    out = (got * wgt).sum(2).to(cfg.compute_dtype)
+    if cfg.num_shared_experts:
+        out = out + shared_expert_forward(cfg, p, x).to(cfg.compute_dtype)
+    return out
 
 
 def moe_decode_ep(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -337,9 +368,9 @@ def moe_decode_ep(cfg: ModelConfig, p: dict, x: torch.Tensor,
     Dispatch entries (token, k, tp-replica) -> per-dest buffers -> all_to_all
     -> local grouped FFN -> inverse all_to_all -> gate-weighted combine.
     Pure EP when lay.tp_inner == 1; hybrid otherwise (partials sum in the
-    combine). `trim`: see `_buffer_rows` (False: the received entries sit
-    in buffers of G * Cd rows per local expert, no host read)."""
-    _check_no_shared(cfg)
+    combine). Shared experts run on replicated weights over the rank's
+    own tokens. `trim`: see `_buffer_rows` (False: the received entries
+    sit in buffers of G * Cd rows per local expert, no host read)."""
     G, T, D = x.shape
     E, k = cfg.num_experts, cfg.top_k
     ep, tp = lay.ep, lay.tp_inner
@@ -384,4 +415,7 @@ def moe_decode_ep(cfg: ModelConfig, p: dict, x: torch.Tensor,
     y_ret = ranks.all_to_all(y_back)
     got = _gather_rows(y_ret, slot).reshape(G, T, k * tp, D).float()
     wgt = (g_entry * keep).reshape(G, T, k * tp, 1)
-    return (got * wgt).sum(2).to(cfg.compute_dtype)
+    out = (got * wgt).sum(2).to(cfg.compute_dtype)
+    if cfg.num_shared_experts:
+        out = out + shared_expert_forward(cfg, p, x).to(cfg.compute_dtype)
+    return out

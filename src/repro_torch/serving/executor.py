@@ -2,11 +2,12 @@
 repro/serving/executor.py).
 
 The Executor owns the device state the Scheduler never sees: a
-control-plane pack (attention, embeddings, norms, routers) for every
-resident layout — the dual-mode buffer — and ONE copy of the expert
-weights, stored in the active layout; the unified KV buffer; the resident
-step runtimes (`ResidentRuntime`); the fused decode loop's device state
-and its one-deep dispatch pipeline; and the `SwitchExecutor`. It consumes
+control-plane pack (attention, embeddings, norms, routers, shared
+experts) for every resident layout — the dual-mode buffer — and ONE copy
+of the routed expert weights (`w13`, `w2`), stored in the active layout;
+the unified KV buffer; the resident step runtimes (`ResidentRuntime`);
+the fused decode loop's device state and its one-deep dispatch pipeline;
+and the `SwitchExecutor`. It consumes
 the Scheduler's `MixedPlan`s: `run_mixed` is THE dispatch path,
 `run_decode` its decode-only wrapper, `decode_fused` the fused N-step
 path (`EngineConfig.decode_steps > 1`), and `run_prefill` with

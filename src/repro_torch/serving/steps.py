@@ -33,7 +33,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.layouts import LayoutSpec, attn_rank_major, get_layout
+from repro_torch.core.layouts import (LayoutSpec, attn_rank_major,
+                                      get_layout, shared_rank_major)
 from repro_torch.distributed import ranks
 from repro_torch.kernels.dispatch import require_device
 from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -57,7 +58,9 @@ def build_decode_pack(cfg: ModelConfig, params: dict, layout: str, G: int):
     TP expands attention to rank-major (the paper's dual-mode attention
     buffer); EP keeps global attention weights replicated. The FFN is the
     stored one: rank-major experts (moe) or the rank-major dense MLP, the
-    same tensors under every layout of the world."""
+    same tensors under every layout of the world. Shared experts follow
+    the expert rule: width-sharded rank-major at G under TP, the global
+    (replicated) tensors under EP."""
     spec = get_layout(layout)
     lp = params["layers"]
     pack = {"embed": params["embed"], "final_norm": params["final_norm"]}
@@ -68,8 +71,11 @@ def build_decode_pack(cfg: ModelConfig, params: dict, layout: str, G: int):
         "attn": (attn_rank_major(cfg, lp["attn"], G) if spec.dense_tp
                  else lp["attn"]),
     }
-    ffn = "moe" if cfg.is_moe else "mlp"
-    pack["layers"][ffn] = lp[ffn]
+    if cfg.is_moe:
+        pack["layers"]["moe"] = (shared_rank_major(lp["moe"], G)
+                                 if spec.expert_kind == "tp" else lp["moe"])
+    else:
+        pack["layers"]["mlp"] = lp["mlp"]
     return pack
 
 

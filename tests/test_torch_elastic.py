@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.layouts import EP, TP, get_layout, world_of
 from repro_torch.core.policy import (CostModelScorer, PolicyConfig,
                                      PolicyObservation)
@@ -451,6 +452,38 @@ def test_elastic_resize_preserves_outputs(port):
     assert ls["world"] == 4 and ls["launch_world"] == 4
     assert {lo["name"]: lo["world"] for lo in ls["layouts"]} == \
         {"tp": 4, "ep": 4, "tp@2": 2}
+
+
+def test_elastic_resize_with_shared_experts():
+    """A shared-expert model (qwen2-moe-a2.7b reduced) with tp, ep and
+    tp@1 resident at G = 2: tp -> tp@1 -> tp, then ep -> tp@1 -> ep, a
+    layer a chunk, give the never-resized tokens. Each pack holds the
+    shared experts at its own world (tp width-sharded at 2, tp@1 at 1, ep
+    the global tensors); no resize moves them."""
+    cfg = get_config("qwen2-moe-a2.7b").reduced(
+        num_heads=4, num_kv_heads=4, capacity_factor=8.0)
+    params = init_params(cfg, 0, device="cpu")
+    kw = dict(mesh=(1, 2), layouts=("tp", "ep", "tp@1"))
+    base = _serve(_engine(cfg, params, **kw), _resize_reqs())
+    eng = _engine(cfg, params, **kw)
+    got = _serve(eng, _resize_reqs(),
+                 {2: "tp@1", 4: "tp", 6: "ep", 8: "tp@1", 10: "ep"})
+    assert got == base
+    s = eng.metrics.summary()
+    assert s["switches"] == 5 and s["cross_world_switches"] == 4
+    L, D = cfg.num_layers, cfg.d_model
+    Fs = cfg.num_shared_experts * cfg.d_expert
+    moe = {str(lo): eng.ex.packs[lo]["layers"]["moe"]
+           for lo in eng.ex.layouts}
+    assert moe["tp"]["shared_wg"].shape == (L, 2, Fs // 2, D)
+    assert moe["tp@1"]["shared_wg"].shape == (L, 1, Fs, D)
+    assert moe["tp@1"]["shared_w2"].shape == (L, 1, D, Fs)
+    for k in ("shared_wg", "shared_wu", "shared_w2", "shared_gate"):
+        assert moe["ep"][k] is params["layers"]["moe"][k]
+        torch.testing.assert_close(moe["tp@1"][k][:, 0] if k != "shared_gate"
+                                   else moe["tp@1"][k],
+                                   params["layers"]["moe"][k], rtol=0,
+                                   atol=0)
 
 
 SHRINK_PLANS = {

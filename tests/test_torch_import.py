@@ -22,7 +22,8 @@ def test_port_imports_no_jax_or_repro():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "for m in ('repro_torch.serving.qos', 'repro_torch.serving.faults'):\n"
+        "for m in ('repro_torch.serving.qos', 'repro_torch.serving.faults',\n"
+        "          'repro_torch.configs.qwen2_moe_a2_7b'):\n"
         "    assert m in sys.modules, m\n"
         "n = sum(1 for m in sys.modules if m.startswith('repro_torch.'))\n"
         "print('ok', n)\n")

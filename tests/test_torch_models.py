@@ -2,7 +2,8 @@
 
 flash_attention, attn_forward, mlp_forward (SwiGLU, GELU), layernorm,
 moe_ffn_global (global and rank-major weights, with and without capacity
-drops), lm_forward over four configs, loss_fn, the analytic parameter
+drops), lm_forward over five configs (qwen2-moe-a2.7b with its shared
+experts among them), loss_fn, the analytic parameter
 counts of every config of both packages, init_params' tree and the weight
 bridge. Inputs are drawn with numpy from a seed; weights come from repro's
 `init_params` through `repro_torch.bridge`.
@@ -259,12 +260,6 @@ def test_capacity_drops_are_deterministic(moe_setup):
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_shared_experts_stay_refused():
-    cfg = port_tiny_moe().replace(num_shared_experts=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        treg.init_params(cfg, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # the whole model
 # ---------------------------------------------------------------------------
@@ -274,6 +269,7 @@ LM_CASES = {
     "qwen3-4b": dict(),                                     # qk-norm
     "starcoder2-15b": dict(),                               # LayerNorm, GELU
     "tiny_moe": None,                                       # sliding window
+    "qwen2-moe-a2.7b": dict(capacity_factor=8.0),           # shared experts
 }
 
 

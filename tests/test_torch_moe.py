@@ -3,13 +3,15 @@
 Packing must be bit-exact; routing and the stacked-rank TP / EP decode
 paths must match repro's global capacity-dispatch `moe_ffn_global` on the
 same params (capacity_factor 8: no token is dropped, so every layout
-computes the same function). Tolerance f32 1e-5."""
+computes the same function), with and without a shared expert (width-
+sharded under TP, replicated under EP). Tolerance f32 1e-5."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.models import moe as jmoe
+from repro_torch.core.layouts import shared_rank_major
 from repro_torch.distributed import ranks
 from repro_torch.models import moe as tmoe
 from tests._torch_common import jax_params, port_tiny_moe
@@ -64,10 +66,27 @@ def test_route_matches_repro_and_breaks_ties_low(setup):
     assert e[3].tolist() == list(range(cfg.top_k))
 
 
+_SHARED: dict = {}
+
+
+def _with_shared(setup, shared: int):
+    """setup's configs and params with `shared` shared experts (repro's
+    params with them, once per module)."""
+    if not shared:
+        return setup
+    if shared not in _SHARED:
+        jcfg, cfg, _, _ = setup
+        jcfg = jcfg.replace(num_shared_experts=shared)
+        _SHARED[shared] = (jcfg, cfg.replace(num_shared_experts=shared),
+                           *jax_params(jcfg))
+    return _SHARED[shared]
+
+
+@pytest.mark.parametrize("shared", [0, 1])
 @pytest.mark.parametrize("layout", ["tp", "ep"])
 @pytest.mark.parametrize("G", [1, 2, 4])
-def test_decode_paths_match_global_moe(setup, layout, G):
-    jcfg, cfg, jp, tp = setup
+def test_decode_paths_match_global_moe(setup, layout, G, shared):
+    jcfg, cfg, jp, tp = _with_shared(setup, shared)
     T = 12
     rng = np.random.default_rng(G)
     x = rng.standard_normal((T, cfg.d_model), dtype=np.float32)
@@ -76,8 +95,11 @@ def test_decode_paths_match_global_moe(setup, layout, G):
         jcfg, jm, jnp.asarray(x), jmoe.make_expert_layout(
             cfg.num_experts, 1, "ep"))
     lay = tmoe.make_expert_layout(cfg.num_experts, G, layout)
-    m = {k: v[0] for k, v in tp["layers"]["moe"].items()}
-    p = {"router": m["router"], "w13": tmoe.pack_w13(m["w13"], lay),
+    moe = tp["layers"]["moe"]
+    if layout == "tp":               # shared experts width-sharded at G
+        moe = shared_rank_major(moe, G)
+    m = {k: v[0] for k, v in moe.items()}
+    p = {**m, "w13": tmoe.pack_w13(m["w13"], lay),
          "w2": tmoe.pack_experts(m["w2"], lay, width_axis=2)}
     xt = torch.from_numpy(x)
     if layout == "tp":               # batch replicated, partial sums psum'd

@@ -312,7 +312,8 @@ def _both_configs(arch):
 
 
 @pytest.mark.parametrize("hw_name", ["TPU_V5E", "H200"])
-@pytest.mark.parametrize("arch", ["qwen3-235b-a22b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["qwen3-235b-a22b", "mixtral-8x7b",
+                                  "qwen2-moe-a2.7b"])
 def test_cost_model_matches_repro(arch, hw_name):
     from repro.core import cost_model as jcm
     from repro.core import policy as jpol
