@@ -131,7 +131,8 @@ Phases (any failure exits non-zero):
                and every graph captured at warmup: the serve phase's 8
                requests in tp, in ep, and once more through a monolithic
                tp->ep switch and an ep->tp one in 4 layer chunks with
-               decode steps between them. The K/V of every live request
+               decode steps between them (tp@1 resident beside them for
+               its own world's MLP copy; each world's bytes printed). The K/V of every live request
                must come through both switches byte-exact, nothing may be
                captured after warmup, attention (#1) must launch and the
                expert GEMM (#2) never, the switches must launch #4/#5, and
@@ -166,6 +167,26 @@ Phases (any failure exits non-zero):
                step against its bound from the experts the step's counts
                touch, each switch against the store's bytes bound, the
                graph pool, the packs' bytes and the memory after each step.
+               #1's device time is split from its host time at group 1.
+ 14. launch — the port's entry points and the full-mesh tpep layout.
+               First the launcher as a user runs it, in a subprocess
+               (`python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
+               --no-reduced --mesh 2x2 --layouts tp,ep,tpep --workload
+               bursty --t-high 18 --decode-steps 8 --scale 0.02`): every
+               stream finishes; prints its TTFT / TPOT p50/p99, switches
+               and final layout. Then the small f32 model at mesh (2, 2)
+               with tp, ep and tpep resident: static on each and every
+               ordered pair switched live give the never-switched tokens,
+               fused 8 == single steps in tpep, card == CPU in tpep. Then
+               qwen3-235b-a22b (4 layers, bf16) at mesh (2, 2), tpep's
+               experts over all 4 ranks, `EngineConfig()` with graphs and
+               the fused loop of 8: static tpep, then from tp through
+               monolithic tp->tpep, tpep->ep and ep->tpep switches (the
+               store against a pinned host copy packed by the plain
+               converter, live K/V byte-exact, 0 captures after warmup),
+               every run held to fp32 `lm_forward` as in phase 11, and 4
+               requests streamed over HTTP/SSE on 127.0.0.1 through a live
+               tp->tpep switch equal to the batch run of the same script.
 
 `python3 chip_smoke.py --only reference,dense` runs the named phases alone
 (after the build) and prints no kernels line and no result line.
@@ -1650,8 +1671,10 @@ def teacher_forced(eng, reqs, outs, chunk: int, ids=None, lead: int = 0,
     pages = cc.view_shape(eng.cfg, eng.G, spec)[2]
     check(bs * per < pages, f"teacher forcing: {bs} x {per} pages do not fit "
                             f"{pages}")
+    # the requests ride data group 0; the others get empty rows (tpep's
+    # FFN spans every group)
     mk = lambda Sq: build_mixed_step(  # noqa: E731
-        eng.cfg, (1, eng.G), spec, cc, B, Sq=Sq, return_logits=True,
+        eng.cfg, (eng.Dd, eng.G), spec, cc, B, Sq=Sq, return_logits=True,
         device=dev)
     pre, dec = mk(chunk), mk(dec_sq)
     pack, kv = ex._assemble_pack(spec), torch.zeros_like(ex.kv_flat)
@@ -1659,7 +1682,8 @@ def teacher_forced(eng, reqs, outs, chunk: int, ids=None, lead: int = 0,
     for i in range(n):
         k = i % bs
         bt[0, i, :per] = np.arange(1 + k * per, 1 + (k + 1) * per)
-    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    T = lambda a: torch.from_numpy(np.concatenate(  # noqa: E731
+        [a] + [np.zeros_like(a)] * (eng.Dd - 1))).to(dev)
     V = eng.cfg.vocab_size
     out = {r.rid: [] for r in reqs}
 
@@ -3440,9 +3464,12 @@ def phase_dense(results: dict) -> None:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
+    # tp@1 is resident for its own world's MLP copy (one per world, as
+    # repro packs each layout at its world); it serves no request here, so
+    # its graphs are not captured
     eng = MoebiusEngine(cfg, (1, G), cc, params_global=params,
                         ecfg=EngineConfig(start_layout="tp",
-                                          layouts=("tp", "ep"),
+                                          layouts=("tp", "ep", "tp@1"),
                                           prefill_chunk=128, seed=SEED,
                                           decode_steps=N,
                                           chunk_layers=DENSE_CHUNK_LAYERS,
@@ -3451,7 +3478,12 @@ def phase_dense(results: dict) -> None:
     ex = eng.ex
     check(ex._stores == [{}] and ex._moe_host is None,
           "dense: the executor holds an expert store")
-    eng.warmup()
+    mlp_w = ex.mlp_bytes()
+    check(set(mlp_w) == {1, G}, f"dense: MLP copies of worlds {set(mlp_w)}")
+    print("dense: one rank-major MLP a world: " + ", ".join(
+        f"world {w} {b} bytes ({b / 1e9:.2f} GB)"
+        for w, b in sorted(mlp_w.items())), flush=True)
+    eng.warmup(layouts=("tp", "ep"))
     t_build = time.time() - t0
     check(ex.banks == 2 and ex._stores[1] == {},
           f"dense: banks {ex.banks}")
@@ -3473,17 +3505,18 @@ def phase_dense(results: dict) -> None:
           f"{kv_bank} bytes); device {torch.cuda.memory_allocated() / 2**30:.2f}"
           f" GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    mlp = [ex.packs[lo]["layers"]["mlp"] for lo in ex.layouts]
+    mlp = [ex.packs[lo]["layers"]["mlp"] for lo in ("tp", "ep")]
     check(all(m[k].data_ptr() == mlp[0][k].data_ptr() for m in mlp
               for k in mlp[0]), "dense: the layouts do not share one MLP")
-    for lo in ex.layouts:
+    for lo in ("tp", "ep"):
         print(f"dense weights {lo}: {tree_bytes([ex.packs[lo]])} bytes "
               f"({tree_bytes([ex.packs[lo]]) / 2**30:.2f} GiB) in its decode "
               f"pack, of which the rank-major MLP shared by both layouts "
               f"{tree_bytes([mlp[0]])} bytes", flush=True)
-    print(f"dense weights: both packs together {tree_bytes(ex.packs.values())}"
-          f" bytes ({tree_bytes(ex.packs.values()) / 2**30:.2f} GiB), the "
-          f"global params {tree_bytes([params])} bytes", flush=True)
+    packs = tree_bytes(ex.packs.values())
+    print(f"dense weights: the tp, ep and tp@1 packs together {packs} "
+          f"bytes ({packs / 2**30:.2f} GiB), the global params "
+          f"{tree_bytes([params])} bytes", flush=True)
 
     shapes = {"gather": set(), "scatter": set()}
     undo = record_staging(shapes)
@@ -3863,12 +3896,21 @@ def shared_kernel_checks(cfg, prompts, shapes: dict, store: dict) -> None:
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask))
         b_ms, b_by = bound(*attention_work(a), a["q"].dtype)
+        # group 1 (ROADMAP B item 2): each call's device time apart from
+        # the host time it takes to enqueue, the kernel's and SDPA's
+        dev_ms, host_us = split_times(
+            lambda: paged_attention_cuda(*args, window=0))
+        lib_dev_ms, lib_host_us = split_times(
+            lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                   attn_mask=mask))
         print(f"shared: attention {name} ({kw['G']} ranks x {kw['B']} x "
               f"{kw['Sq']} queries x {kw['H']} heads, {kw['K']} KV heads, "
               f"group 1, kv {kw['kv_lo']}-{kw['kv_hi']}) row error "
               f"{e_row:.3e} <= {BF16_TOL}; ms={ms:.4f} plain_ms="
               f"{plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.4f} "
-              f"({b_by})", flush=True)
+              f"({b_by}); device {dev_ms:.4f} ms + host {host_us:.1f} us a "
+              f"call, sdpa device {lib_dev_ms:.4f} ms + host "
+              f"{lib_host_us:.1f} us", flush=True)
         del a, args, got, qd, kd, vd, mask
     Wt, We = 2 * I // G, 2 * I            # w13 width a rank: tp, ep
     for name, kw in (("tp_w13_decode", dict(E=G * E, C=8, D=D, W=Wt)),
@@ -4231,6 +4273,474 @@ def phase_shared(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the full-mesh tpep layout, the HTTP frontend and the launcher
+# ---------------------------------------------------------------------------
+
+LAUNCH_MESH = (2, 2)        # Dd x G: tpep's expert group is all 4 ranks
+LAUNCH_LAYOUTS = ("tp", "ep", "tpep")
+LAUNCH_PAIRS = [(a, b) for a in LAUNCH_LAYOUTS for b in LAUNCH_LAYOUTS
+                if a != b]
+LAUNCH_SWITCHES = {3: "tpep", 6: "ep", 9: "tpep"}   # from tp, monolithic
+LAUNCH_SCALE = 0.02         # bursty trace scale of the launcher run
+LAUNCH_TIMEOUT = 300        # seconds for the launcher subprocess
+
+
+def launch_small() -> None:
+    """(a) The small f32 MoE of phase 3 at mesh (2, 2) with tp, ep and tpep
+    resident: for every ordered pair, serving statically on the source and
+    switching source -> destination live at step 4 give the tokens of the
+    tp run that never switched; the fused loop of 8 equals single steps in
+    tpep; the card's static tpep tokens equal the CPU's (plain versions)
+    wherever the CPU's fp32 `lm_forward` margin is clear."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.registry import init_params
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.kvcache import CacheConfig
+    from repro_torch.serving.request import Request
+
+    cfg = parity_model()
+    cc = CacheConfig(page_size=16, pages_ep=32, max_pages_per_req=8)
+    params = init_params(cfg, SEED, device="cuda")
+    prompts = [np.random.default_rng(SEED + i).integers(
+        1, cfg.vocab_size, 20 + 5 * i).tolist() for i in range(8)]
+
+    def run(start, target=None, N=1, dev="cuda", p=params):
+        eng = MoebiusEngine(cfg, LAUNCH_MESH, cc, params_global=p,
+                            ecfg=EngineConfig(start_layout=start,
+                                              layouts=LAUNCH_LAYOUTS,
+                                              ladder=(4, 8),
+                                              prefill_chunk=32,
+                                              decode_steps=N,
+                                              policy=static_policy(),
+                                              **NO_CACHE), device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=list(pr), max_new_tokens=12,
+                               arrival_s=0.0))
+        i = 0
+        while eng.sched.has_work():
+            if i == 4 and target is not None:
+                check(eng.execute_switch(target),
+                      f"launch small: {start}->{target} aborted")
+            eng.step()
+            i += 1
+            check(i < 500, "launch small: engine made no progress")
+        eng.run()
+        if target is not None:
+            check([r.direction for r in eng.switch_records]
+                  == [f"{start}_to_{target}"],
+                  f"launch small: switches {eng.switch_records}")
+        return {r.rid: list(r.output) for r in eng.finished}
+
+    t0 = time.time()
+    base = run("tp")
+    for lo in LAUNCH_LAYOUTS[1:]:
+        check(run(lo) == base, f"launch small: static {lo} != static tp")
+    for src, dst in LAUNCH_PAIRS:
+        check(run(src, dst) == base, f"launch small: {src}->{dst} at step "
+                                     f"4 changed the tokens")
+    check(run("tpep", N=8) == base, "launch small: fused 8 != single steps "
+                                    "in tpep")
+    cpu = run("tpep", dev="cpu", p=_tree_to(params, "cpu"))
+    same = differ = 0
+    for rid, want in cpu.items():
+        got = base[rid]
+        if got == want:
+            same += 1
+            continue
+        j = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        seq = torch.tensor([prompts[rid] + want[:j]])
+        with torch.inference_mode():
+            lg = lm_forward(cfg, _tree_to(params, "cpu"), seq)[0, -1]
+        top2 = lg[:cfg.vocab_size].topk(2).values
+        margin = float(top2[0] - top2[1])
+        check(margin <= 2 * F32_TOL, f"launch small: request {rid} card "
+                                     f"tpep token {j} differs from the CPU's "
+                                     f"at margin {margin}")
+        differ += 1
+    print(f"launch small: f32 MoE at mesh {LAUNCH_MESH} (tpep's experts over "
+          f"all 4 ranks): static tp/ep/tpep and the 6 live switches at step "
+          f"4 give the never-switched tokens, fused 8 == single steps in "
+          f"tpep; card vs CPU tpep: {same} of {len(cpu)} requests equal, "
+          f"{differ} part at an unclear margin (<= {2 * F32_TOL}); "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+
+def http_batch_check(eng, prompts: list, what: str) -> None:
+    """(b) 4 requests streamed over HTTP/SSE (`launch/http.HttpFrontend` on
+    127.0.0.1, an ephemeral port) from tp, with a live tp->tpep switch once
+    the first stream's first token arrived; then the same script as a batch
+    run on the same engine: each request submitted at the iteration it
+    reached the engine over HTTP, the switch at its iteration. The SSE
+    tokens must equal the batch tokens byte for byte."""
+    import asyncio
+    import json as _json
+
+    from repro_torch.launch.http import HttpFrontend
+    from repro_torch.serving.frontend import AsyncEngine
+    from repro_torch.serving.request import Request
+
+    def to_tp():
+        eng.clear_prefix_cache()
+        if str(eng.active) != "tp":
+            check(eng.execute_switch("tp"), f"{what}: idle ->tp")
+
+    to_tp()
+    inner = eng.submit
+    log, at = [], {}
+
+    def submit(r):
+        log.append((eng._step_i - at["s0"], list(r.prompt),
+                    r.max_new_tokens))
+        inner(r)
+
+    eng.submit = submit
+    fe = AsyncEngine(eng)
+    fe._next_rid = 1000
+
+    async def client(srv, prompt, first: bool):
+        reader, writer = await asyncio.open_connection(srv.host, srv.port)
+        body = _json.dumps({"prompt": prompt, "max_new_tokens": 32}).encode()
+        writer.write((f"POST /v1/generate HTTP/1.1\r\nHost: t\r\n"
+                      f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
+        await writer.drain()
+        toks = []
+        while True:
+            line = (await reader.readline()).strip()
+            if line == b"data: [DONE]" or not line and reader.at_eof():
+                break
+            if not line.startswith(b"data: "):
+                continue
+            toks.append(_json.loads(line[6:])["token"])
+            if first and "switch" not in at:
+                at["switch"] = eng._step_i - at["s0"]
+                check(eng.execute_switch("tpep"),
+                      f"{what}: the live tp->tpep switch")
+        writer.close()
+        await writer.wait_closed()
+        return toks
+
+    async def serve():
+        srv = await HttpFrontend(fe, host="127.0.0.1", port=0).start()
+        try:
+            return srv.port, await asyncio.gather(*(
+                client(srv, p, i == 0) for i, p in enumerate(prompts)))
+        finally:
+            await srv.close()
+
+    at["s0"] = eng._step_i
+    t0 = time.time()
+    try:
+        port, sse = asyncio.run(serve())
+    finally:
+        eng.submit = inner
+    wall = time.time() - t0
+    eng.run()
+    check("switch" in at and str(eng.active) == "tpep",
+          f"{what}: the live switch did not happen")
+    check(len(log) == len(prompts), f"{what}: {len(log)} submissions")
+
+    # the batch run of the same script
+    to_tp()
+    s0 = eng._step_i
+    todo = sorted(log, key=lambda x: x[0])
+    rids = []
+    while todo or eng.sched.has_work():
+        off = eng._step_i - s0
+        while todo and todo[0][0] <= off:
+            _, p, n = todo.pop(0)
+            r = Request(rid=2000 + len(rids), prompt=p, max_new_tokens=n,
+                        arrival_s=eng.now(), slo_class="interactive")
+            rids.append(r.rid)
+            eng.submit(r)
+        if off == at["switch"]:
+            check(eng.execute_switch("tpep"), f"{what}: batch tp->tpep")
+        if eng.sched.has_work():
+            eng.step()
+        check(eng._step_i - s0 < 2000, f"{what}: batch made no progress")
+    eng.run()
+    out = {r.rid: list(r.output) for r in eng.finished if r.rid in rids}
+    batch = [out[rid] for rid in rids]
+    # SSE streams in submission order
+    order = [next(i for i, p in enumerate(prompts) if p == q)
+             for _, q, _ in log]
+    check(all(sse[i] == batch[k] for k, i in enumerate(order)),
+          f"{what}: SSE tokens differ from the batch run's")
+    n = sum(map(len, sse))
+    print(f"{what}: {len(prompts)} requests streamed over HTTP/SSE "
+          f"(127.0.0.1:{port}) in {wall:.2f} s, {n} tokens, a live tp->tpep "
+          f"switch at iteration {at['switch']} of the run: equal byte for "
+          f"byte to the batch run of the same script", flush=True)
+    eng.clear_prefix_cache()
+
+
+def launch_serve(results: dict) -> None:
+    """(b) qwen3-235b-a22b at full width, 4 of its 94 layers, bf16, at mesh
+    (2, 2): 4 stacked ranks, so tpep's expert group holds 32 of the 128
+    experts a rank. `EngineConfig()` with tp, ep and tpep resident, graphs
+    and the fused loop of 8. The serve phase's 8 requests statically in
+    tpep; then from tp through monolithic tp->tpep, tpep->ep and ep->tpep
+    switches (the store checked after each against the packing of a pinned
+    host copy of the caller's experts by the plain converter, the K/V of
+    every live request byte-exact, 0 captures after warmup). Every run's
+    tokens held to fp32 `lm_forward` by the reference phase's rule, the
+    engine's last-prompt-position logits in tp, ep and tpep too; then 4
+    requests over HTTP/SSE through a live tp->tpep switch, equal to the
+    batch run of the same script."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.moe import (make_expert_layout, pack_experts,
+                                        pack_w13)
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.request import Request
+
+    cfg, cc = serve_model()
+    Dd, G = LAUNCH_MESH
+    L, E, N = cfg.num_layers, cfg.num_experts, 8
+    prompts = serve_prompts(cfg)
+
+    def trace(rid0=0):
+        return [Request(rid=rid0 + i, prompt=list(p), max_new_tokens=32,
+                        arrival_s=0.0) for i, p in enumerate(prompts)]
+
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, SEED, device="cuda")
+    moe_g = params["layers"]["moe"]
+    host = {k: torch.empty(moe_g[k].shape, dtype=moe_g[k].dtype,
+                           pin_memory=True).copy_(moe_g[k])
+            for k in ("w13", "w2")}
+    store_bytes = sum(v.numel() * v.element_size() for v in host.values())
+    t0 = time.time()
+    eng = MoebiusEngine(cfg, LAUNCH_MESH, cc, params_global=params,
+                        ecfg=EngineConfig(start_layout="tpep",
+                                          layouts=LAUNCH_LAYOUTS,
+                                          prefill_chunk=128, seed=SEED,
+                                          decode_steps=N,
+                                          policy=static_policy()),
+                        device="cuda")
+    t_build = time.time() - t0
+    del moe_g["w13"], moe_g["w2"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex, rt = eng.ex, eng.ex.rt
+    t0 = time.time()
+    eng.warmup()
+    t_warm = time.time() - t0
+    # (no loop variable may keep a graph, and with it the packs, alive)
+    bad = [k for k, e in rt.executables.items()
+           if not (e.launches.get("paged_attention", 0) > 0
+                   and e.launches.get("grouped_matmul", 0) > 0)]
+    check(not bad, f"launch: graphs {bad} miss attention or the GEMM")
+    check({k[0] for k in rt.executables} == set(ex.layouts),
+          f"launch: graphs of {sorted({str(k[0]) for k in rt.executables})}")
+    pool = rt.pool_bytes()
+    total = torch.cuda.get_device_properties(0).total_memory
+    shp = ex._shapes[ex.active]["w13"]
+    print(f"launch config: {cfg.name} full width, num_layers={L}, {E} "
+          f"experts top-{cfg.top_k}, bf16, mesh {LAUNCH_MESH} (Dd x G "
+          f"stacked ranks on the card); tpep store w13 {shp} (experts over "
+          f"all {Dd * G} ranks, {shp[2]} a rank), {store_bytes / 2**30:.2f} "
+          f"GiB; engine built in {t_build:.2f} s, warmed in {t_warm:.2f} s: "
+          f"{len(rt.executables)} graphs captured (tp, ep, tpep; rungs "
+          f"{[ex.ladder_for(lo) for lo in ex.layouts]}, single steps and "
+          f"the fused loop of {N}), graph pool {pool / 2**20:.1f} MiB = "
+          f"{pool / total:.2%} of the card", flush=True)
+    memory_line("launch memory, warmed")
+
+    def store_is(layout: str) -> bool:
+        lay = make_expert_layout(E, Dd * G if layout == "tpep" else G,
+                                 "tp" if layout == "tp" else "ep")
+        st = ex._experts
+        for li in range(L):
+            w13 = host["w13"][li].cuda(non_blocking=True)
+            w2 = host["w2"][li].cuda(non_blocking=True)
+            if not (torch_equal(st["w13"][li], pack_w13(w13, lay))
+                    and torch_equal(st["w2"][li], pack_experts(w2, lay, 2))):
+                return False
+        return True
+
+    check(store_is("tpep"), "launch: the tpep store is not the packing of "
+                            "the caller's experts")
+    streams, per_run, switch_log = {}, {}, []
+    hook_s = [0.0]
+    ptrs = [v.data_ptr() for v in ex._stores[0].values()]
+
+    def live_switch(target):
+        check(len(eng.sched.live()) > 0, f"launch: nothing live at "
+                                         f"->{target}")
+        t_chk = time.time()
+        snap = kv_written(eng)
+        hook_s[0] += time.time() - t_chk
+        c0 = {k: dispatch.calls(k) for k in SWITCH_KERNELS}
+        check(eng.execute_switch(target), f"launch: ->{target} aborted")
+        rec = eng.switch_records[-1]
+        grew = {k: dispatch.calls(k) - c0[k] for k in c0}
+        t_chk = time.time()
+        check(ptrs == [v.data_ptr() for v in ex._stores[0].values()],
+              f"launch {rec.direction}: the store moved")
+        n = check_kv_moved(snap, kv_written(eng), f"launch {rec.direction}")
+        check(store_is(target), f"launch {rec.direction}: the store is not "
+                                f"the {target} packing of the caller's "
+                                f"experts")
+        hook_s[0] += time.time() - t_chk
+        switch_log.append((rec, grew, n))
+
+    replays0 = rt.replayed_launches()
+    for run, rid0, hooks in (
+            ("tpep", 0, None),
+            ("switched", 100, {at: (lambda t=t: live_switch(t))
+                               for at, t in LAUNCH_SWITCHES.items()})):
+        start = "tp" if run == "switched" else run
+        if str(eng.active) != start:
+            check(eng.execute_switch(start), f"launch: idle ->{start}")
+        hook_s[0] = 0.0
+        dispatch.reset_counts()
+        r0 = rt.replayed_launches()
+        out, wall, log = timed_serve(eng, trace(rid0), hooks)
+        eng.clear_prefix_cache()
+        streams[run] = {rid - rid0: t for rid, t in out.items()}
+        toks = sum(map(len, out.values()))
+        check(len(out) == 8 and toks == 256,
+              f"launch {run}: {len(out)} requests, {toks} tokens")
+        rep = rt.replayed_launches() - r0
+        n = {k: dispatch.calls(k) + rep.get(k, 0)
+             for k in ("paged_attention", "grouped_matmul")}
+        check(all(v > 0 for v in n.values()), f"launch {run}: launches {n}")
+        for k in ("paged_attention", "grouped_matmul") + SWITCH_KERNELS:
+            results["launches"][k] = (results["launches"].get(k, 0)
+                                      + dispatch.calls(k))
+        dec = [ms / N for ms, d, _ in log if d]
+        per_run[run] = (toks / (wall - hook_s[0]),
+                        sum(dec) / max(1, len(dec)), len(dec), len(log), n)
+    check(rt.late_builds == 0, f"launch: {rt.late_builds} captures after "
+                               f"warmup")
+    check([r.direction for r, _, _ in switch_log]
+          == ["tp_to_tpep", "tpep_to_ep", "ep_to_tpep"],
+          f"launch: switches {[r.direction for r, _, _ in switch_log]}")
+    for run, (tok_s, dec_ms, n_dec, iters, n) in per_run.items():
+        print(f"launch {run}: 8 requests, 256 tokens, {iters} iterations -> "
+              f"{tok_s:.2f} tok/s (the switched run's checks left out, the "
+              f"switches in); decode-only {dec_ms:.3f} ms a token (mean of "
+              f"{n_dec} fused iterations of {N}); #1/#2 launches (eager + "
+              f"graph replays) {n}", flush=True)
+    kv_bytes_page = (cc.page_size * 2 * L * cfg.num_kv_heads * cfg.dh
+                     * cfg.param_dtype.itemsize)
+    for rec, grew, n_kv in switch_log:
+        nbytes = 2 * store_bytes + 2 * rec.kv_pages * kv_bytes_page
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"launch switch {rec.direction}: monolithic pause_s="
+              f"{rec.pause_s:.4f} total_s={rec.total_s:.4f} weights_s="
+              f"{rec.weights_s:.4f} kv_s={rec.kv_s:.4f} plan_s="
+              f"{rec.plan_s:.4f} kv_pages={rec.kv_pages} live="
+              f"{rec.live_requests}; {nbytes / 1e9:.3f} GB read and written "
+              f"once: bound {b_ms:.3f} ms, movers "
+              f"{(rec.weights_s + rec.kv_s) * 1e3 / b_ms:.2f}x it; launches "
+              f"{grew}; store byte-exact in place, K/V of {n_kv} live "
+              f"requests byte-exact", flush=True)
+    print(f"launch: graph replays {dict(rt.replayed_launches() - replays0)}; "
+          f"0 captures after warmup", flush=True)
+    memory_line("launch memory, after the serves")
+
+    # the reference: the engine's first logits in every layout, margins
+    # teacher-forced in tp and ep, then lm_forward in fp32
+    firsts = {}
+    for lo in ("tpep", "tp"):
+        if str(eng.active) != lo:
+            check(eng.execute_switch(lo), f"launch: idle ->{lo}")
+        firsts[lo] = engine_first_logits(eng, trace(), streams["tpep"])
+
+    def to_ep():
+        check(eng.execute_switch("ep"), "launch: the idle tp->ep switch")
+
+    t0 = time.time()
+    margins = stream_margins(eng, trace(), streams, to_ep)
+    firsts["ep"] = engine_first_logits(eng, trace(), streams["tpep"])
+    print(f"launch: margins teacher-forced through the engine in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    http_batch_check(eng, prompts[:4], "launch http")
+    check(eng.execute_switch("ep"), "launch: idle ->ep")
+    check(store_is("ep"), "launch: the store after the http run")
+    store, lay = dict(ex._experts), ex.active.expert_layout(cfg, G)
+    del eng, ex, rt, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_params = {**params, "layers": {**params["layers"], "moe": {
+        **params["layers"]["moe"], **store}}}
+    ref, ref_first = reference_logits(cfg, ref_params, trace(), streams,
+                                      "launch", lay=lay)
+    bf16_err, _, _ = bf16_baseline(cfg, ref_params, trace(), "launch",
+                                   lay=lay)
+    report_reference("launch", cfg, streams, ref, margins, firsts,
+                     ref_first, bf16_err)
+    memory_line("launch memory, after the reference")
+    del params, ref_params, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory_line("launch memory, all freed")
+
+
+def launch_cli() -> None:
+    """(c) The launcher as a user runs it, in a subprocess:
+    `python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --no-reduced
+    --mesh 2x2 --layouts tp,ep,tpep --workload bursty --t-high 18
+    --decode-steps 8 --scale LAUNCH_SCALE` (the published config, 24.91 GB
+    of routed experts in the store, warmed before the trace). Every stream
+    must finish; prints the summary's latencies, switches and final
+    layout."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+           "--arch", "qwen2-moe-a2.7b", "--no-reduced", "--mesh", "2x2",
+           "--layouts", "tp,ep,tpep", "--workload", "bursty",
+           "--t-high", "18", "--decode-steps", "8",
+           "--scale", str(LAUNCH_SCALE)]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=LAUNCH_TIMEOUT)
+    wall = time.time() - t0
+    check(proc.returncode == 0, f"launch cli: exit {proc.returncode}:\n"
+                                f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    start = max(i for i, ln in enumerate(lines) if ln == "{")
+    s = json.loads("\n".join(lines[start:]))
+    check(s["streams_finished"] == s["n"] > 0,
+          f"launch cli: {s['streams_finished']} of {s['n']} streams "
+          f"finished")
+    print(f"launch cli: `{' '.join(cmd[1:])}` ran in {wall:.1f} s (the "
+          f"build of the engine and its warmup included): {s['n']} "
+          f"requests, {s['streams_finished']} streams finished, "
+          f"{s['total_tokens']} tokens; TTFT p50/p99 {s['ttft_p50_s']:.4f} / "
+          f"{s['ttft_p99_s']:.4f} s, TPOT p50/p99 {s['tpot_p50_s']:.4f} / "
+          f"{s['tpot_p99_s']:.4f} s; {s['switches']} switches (pause max "
+          f"{s['switch_pause_max_s']:.4f} s), final layout "
+          f"{s['final_layout']}, makespan {s['makespan_s']:.2f} s",
+          flush=True)
+
+
+def phase_launch(results: dict) -> None:
+    """The launcher (c) first, while this process holds next to nothing
+    on the card, then tpep at two sizes with the HTTP frontend (a, b)."""
+    import torch
+    print(f"launch: this process holds {torch.cuda.memory_allocated()} "
+          f"bytes on the card ({torch.cuda.memory_reserved()} reserved) "
+          f"before the launcher starts", flush=True)
+    t0 = time.time()
+    launch_cli()
+    t1 = time.time()
+    launch_small()
+    t2 = time.time()
+    launch_serve(results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"launch: launcher {t1 - t0:.1f} s, small {t2 - t1:.1f} s, serve "
+          f"model {time.time() - t2:.1f} s; {card_line()}", flush=True)
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them: every
     number this script prints stands beside them."""
@@ -4282,7 +4792,8 @@ def main() -> int:
               ("elastic", lambda: phase_elastic(results)),
               ("reference", lambda: phase_reference(results)),
               ("dense", lambda: phase_dense(results)),
-              ("shared", lambda: phase_shared(results))]
+              ("shared", lambda: phase_shared(results)),
+              ("launch", lambda: phase_launch(results))]
     results: dict = {"launches": {}}
     t_run = time.time()
     for name, fn in phases:

@@ -95,6 +95,11 @@ class LayoutSpec(str):
             return tuple(ladder)
         return tuple(sorted({max(q, -(-b // q) * q) for b in ladder}))
 
+    def prefill_quantum(self, G: int) -> int:
+        """Tokens-per-chunk multiple required by the prefill step (full-mesh
+        experts split the chunk's token set 1/G per rank)."""
+        return G if self.expert_full_mesh else 1
+
     # -- KV ownership -------------------------------------------------------
     def kv_capacity_tokens(self, cfg: ModelConfig, G: int,
                            ep_capacity_tokens: int) -> int:
@@ -216,15 +221,19 @@ def expert_layout(cfg: ModelConfig, G: int, layout: str) -> ExpertLayout:
     return make_expert_layout(cfg.num_experts, G, layout)
 
 
-def expert_store_shapes(cfg: ModelConfig, layout, G: int) -> dict:
+def expert_store_shapes(cfg: ModelConfig, layout, G: int,
+                        chips: int | None = None) -> dict:
     """Shapes of the stacked rank-major expert store of `layout` on a
-    G-rank group: w13 (L, G, E_loc, 2I/tp, D), w2 (L, G, E_loc, D, I/tp).
-    Every (layout, G) holds the same elements, so one flat buffer serves
-    every resident layout and world as a view."""
-    lay = get_layout(layout).expert_layout(cfg, G)
+    G-rank group: w13 (L, Ge, E_loc, 2I/tp, D), w2 (L, Ge, E_loc, D, I/tp),
+    where Ge is the layout's expert group: G, or `chips` (the full Dd x G
+    mesh) for a full-mesh layout. Every (layout, G) holds the same
+    elements, so one flat buffer serves every resident layout and world as
+    a view."""
+    lay = get_layout(layout).expert_layout(cfg, G, chips)
     L, E, I, D = cfg.num_layers, cfg.num_experts, cfg.d_expert, cfg.d_model
     e_loc, i_loc = E // lay.ep, I // lay.tp_inner
-    return {"w13": (L, G, e_loc, 2 * i_loc, D), "w2": (L, G, e_loc, D, i_loc)}
+    return {"w13": (L, lay.G, e_loc, 2 * i_loc, D),
+            "w2": (L, lay.G, e_loc, D, i_loc)}
 
 
 def padded_vocab(V: int, multiple: int = 256) -> int:

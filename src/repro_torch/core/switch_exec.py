@@ -4,8 +4,9 @@ repro/core/switch_exec.py, the same-world part).
 Switches are planned between any ordered pair of registered, servable
 `LayoutSpec`s: the executor diffs the two specs' KV views (same view ->
 identity, the allocators and pages pass through untouched) and their
-ExpertLayouts (the generic pair resharder for any pair; the paper's fused
-direct path for the pure-EP tp<->ep pair).
+ExpertLayouts (the generic pair resharder for any pair, between stores of
+G and of Dd x G ranks where one side is the full-mesh `tpep`; the paper's
+fused direct path for the pure-EP tp<->ep pair).
 
 Two execution modes over the movers in core/switch.py (DESIGN.md §4):
 
@@ -156,6 +157,8 @@ class SwitchExecutor:
                  direct_reshard: bool = True, device="cuda"):
         self.cfg, self.cc, self.mesh = cfg, cc, mesh
         self.Dd, self.G = mesh
+        # the full mesh: a full-mesh layout's (tpep) expert group
+        self.chips = self.Dd * self.G
         self.device = require_device(device)
         self.Lk = num_kv_layers(cfg)
         self.direct_reshard = direct_reshard
@@ -184,14 +187,15 @@ class SwitchExecutor:
                                    hi)
         else:
             src_lay, dst_lay = pair_expert_layouts(self.cfg, src, dst,
-                                                   self.G)
+                                                   self.G, self.chips)
             reshard_experts_pair(self.cfg, experts, out, src_lay, dst_lay,
                                  lo, hi)
 
     def _empty_store(self, src, dst, experts: dict) -> dict:
         """The destination-layout expert store, uninitialised: every element
         is written by the movers before it is read."""
-        src_lay, dst_lay = pair_expert_layouts(self.cfg, src, dst, self.G)
+        src_lay, dst_lay = pair_expert_layouts(self.cfg, src, dst, self.G,
+                                               self.chips)
         shapes = expert_pair_dst_shapes(self.cfg, src_lay, dst_lay, experts)
         return {k: torch.empty(s, dtype=experts[k].dtype,
                                device=experts[k].device)

@@ -22,6 +22,8 @@ policy now prefers the source layout (mid-switch reversal).
 `warmup()` captures every resident layout's decode runtimes (CUDA graphs
 on a card, core/residency.py); the switches land at the addresses they
 were captured against, so serving and switching capture nothing more.
+The resident layouts may be any registered ones: `tp`, `ep` and the
+full-mesh `tpep` (TP attention, whole experts over all Dd x G ranks).
 
 `EngineConfig()` carries repro's defaults: the prefix cache shares
 page-aligned prompt prefixes across requests (refcounted pages, the
@@ -42,8 +44,8 @@ the requests whose KV touched the rank for a teacher-forced re-prefill,
 and under a per-rank view keeps the rank's pool out of placement until
 they have re-prefilled (degraded mode; `_check_recoveries`).
 
-Not in this slice: the full-mesh `tpep` layout (raises
-`NotImplementedError`), the streaming frontend and the HTTP server.
+The streaming frontend (`serving/frontend.AsyncEngine`) and the launchers
+(`launch/serve.py`, `launch/http.py`) drive this engine.
 """
 from __future__ import annotations
 
@@ -158,10 +160,6 @@ class MoebiusEngine:
         start = get_layout(self.ecfg.start_layout)
         if start not in self.layouts:
             self.layouts = self.layouts + (start,)
-        for spec in self.layouts:
-            if spec.expert_full_mesh:
-                raise NotImplementedError(
-                    f"layout {spec!r}: full-mesh layouts are not ported yet")
         self.metrics = ServeMetrics()
         self.switch_records: list[SwitchRecord] = []
         self._step_i = 0
@@ -307,10 +305,11 @@ class MoebiusEngine:
     def submit(self, req: Request) -> None:
         self.sched.submit(req)
 
-    def warmup(self) -> None:
-        """Capture every resident layout's decode runtimes now (the
-        executor's `warmup`); nothing is captured while serving after."""
-        self.ex.warmup()
+    def warmup(self, layouts=None) -> None:
+        """Capture every resident layout's decode runtimes now, or those of
+        `layouts` (the executor's `warmup`); nothing is captured while
+        serving after."""
+        self.ex.warmup(layouts)
 
     def requeue_for_reprefill(self, r: Request) -> None:
         self.sched.requeue_for_reprefill(r)

@@ -16,8 +16,8 @@ runs the Scheduler's `CopyPages` decisions, the prefix cache's
 copy-on-write forks, through the kv_pack kernels (`copy_pages`).
 Everything expert-shaped is keyed on `cfg.is_moe`, as in repro: a dense
 model has no expert store and no canonical host copy, its rank-major MLP
-is built once and shared by every layout's pack, its second bank holds
-K/V only, and its switches move K/V alone.
+is built once per world present and shared by the packs of that world,
+its second bank holds K/V only, and its switches move K/V alone.
 
 Fixed addresses. The decode kinds (single steps at Sq == 1 and the fused
 loop) run as CUDA graphs on a card, captured at `warmup()` for every
@@ -44,7 +44,8 @@ reaches the fused loop's device state through its delta rows
 World is a layout dimension (DESIGN.md §13): a sized layout (`"tp@2"`)
 runs on the first w of the G stacked ranks, with its control-plane pack
 built at its world, the one flat expert store viewed in its world's
-rank-major shape (the element count is the same in every world), and
+rank-major shape (the element count is the same in every world, and in
+the full-mesh `tpep` layout's shape over all Dd x w ranks), and
 the KV buffer's contiguous prefix viewed as (Dd, w, NE). Its graphs are
 captured against those views at warmup like every other layout's. A
 switch between worlds (`CrossWorldSwitcher`) stages through pinned host
@@ -127,7 +128,6 @@ class Executor:
         self.layouts = tuple(get_layout(s) for s in layouts)
         self.active = get_layout(active)
         self.metrics = metrics if metrics is not None else ServeMetrics()
-        self.prefill_chunk = ecfg.prefill_chunk
         # world (device count) is a layout dimension: a sized layout runs on
         # the first w of the G stacked ranks
         self.worlds = {spec: world_of(spec, self.G) for spec in self.layouts}
@@ -135,6 +135,9 @@ class Executor:
             if w > self.G:
                 raise ValueError(f"layout {str(spec)!r} wants world {w} > "
                                  f"launch world {self.G}")
+        # full-mesh layouts split each prefill chunk 1/w per rank
+        q = max(s.prefill_quantum(w) for s, w in self.worlds.items())
+        self.prefill_chunk = -(-ecfg.prefill_chunk // q) * q
         if params_global is None:
             params_global = init_params(cfg, ecfg.seed, device=device)
         # one padded copy of the vocab tables, shared by every layout's pack
@@ -142,12 +145,15 @@ class Executor:
                                          padded_vocab(cfg.vocab_size))
 
         # control plane for every resident layout; the experts are packed
-        # once, for the active layout only. An inactive layout's pack is
+        # once, for the active layout only, at its expert group (the full
+        # Dd x w mesh for a full-mesh layout). An inactive layout's pack is
         # built from a tree without expert weights: packing them and then
         # dropping them would hold a second full expert copy meanwhile.
-        # A dense model's rank-major MLP is built once, for every pack.
+        # A dense model's rank-major MLP is built once per world present
+        # and shared by that world's packs.
         self._moe_host = None
         store: dict = {}
+        self._mlps: dict = {}      # world -> a dense model's rank-major MLP
         if cfg.is_moe:
             moe_g = params_global["layers"]["moe"]
             # canonical unpacked experts on the host, for the cross-world
@@ -162,24 +168,21 @@ class Executor:
             bare["layers"]["moe"] = {k: v for k, v in moe_g.items()
                                      if k not in _EXPERTS}
         else:
-            worlds = set(self.worlds.values())
-            if len(worlds) > 1:
-                raise NotImplementedError(
-                    "a dense model with resident layouts of several worlds "
-                    "is not ported yet (ROADMAP A1): its rank-major MLP "
-                    "would need a copy per world")
-            bare = dict(params_global)
-            bare["layers"] = {**params_global["layers"],
-                              "mlp": mlp_rank_major(
-                                  params_global["layers"]["mlp"],
-                                  worlds.pop())}
+            bare = params_global
+            self._mlps = {w: mlp_rank_major(params_global["layers"]["mlp"], w)
+                          for w in sorted(set(self.worlds.values()))}
         self.packs: dict[LayoutSpec, dict] = {}
         for spec in self.layouts:
             active = cfg.is_moe and spec is self.active
             w = self.worlds[spec]
+            tree = params_global if active else bare
+            if self._mlps:
+                tree = {**tree, "layers": {**tree["layers"],
+                                           "mlp": self._mlps[w]}}
             pk = build_decode_pack(
-                cfg, pack_params(cfg, params_global if active else bare,
-                                 spec, w), spec, w)
+                cfg, pack_params(cfg, tree, spec, w,
+                                 expert_G=spec.expert_group(w, self.Dd * w)),
+                spec, w)
             if active:
                 moe = pk["layers"]["moe"]
                 for k in _EXPERTS:
@@ -187,7 +190,7 @@ class Executor:
             self.packs[spec] = pk
         # every layout's view of the one store (same elements, its order,
         # at its world)
-        self._shapes = ({spec: expert_store_shapes(cfg, spec, w)
+        self._shapes = ({spec: expert_store_shapes(cfg, spec, w, self.Dd * w)
                          for spec, w in self.worlds.items()}
                         if cfg.is_moe else {})
         self._pack_cache: dict = {}        # assembled packs, per layout/bank
@@ -299,6 +302,12 @@ class Executor:
             return sum(t.numel() * t.element_size() for t in ts)
         return {"canonical": nbytes((self._moe_host or {}).values()),
                 "staging": nbytes((self._xstage or {}).values())}
+
+    def mlp_bytes(self) -> dict:
+        """Device bytes of a dense model's rank-major MLP, per world ({}
+        for an MoE model)."""
+        return {w: sum(t.numel() * t.element_size() for t in m.values())
+                for w, m in self._mlps.items()}
 
     @property
     def banks(self) -> int:
@@ -434,14 +443,15 @@ class Executor:
         return self.rt.get_or_build((layout, "decode_loop", B, N, bank),
                                     build)
 
-    def warmup(self) -> None:
-        """Make every resident layout's runtime at startup (paper §4.4):
-        capture, on a card, the single decode step and (decode_steps > 1)
-        the fused loop of every batch rung, for every bank, each layout at
-        its own world — with `chunk_layers > 0` and two resident layouts
-        of one world the chunked switch's second store and KV buffer are
-        allocated here and their graphs captured too; with layouts of
-        several worlds resident the cross-world staging is allocated here.
+    def warmup(self, layouts=None) -> None:
+        """Make every resident layout's runtime at startup (paper §4.4), or
+        only those of `layouts`: capture, on a card, the single decode step
+        and (decode_steps > 1) the fused loop of every batch rung, for
+        every bank, each layout at its own world — with `chunk_layers > 0`
+        and two resident layouts of one world the chunked switch's second
+        store and KV buffer are allocated here and their graphs captured
+        too; with layouts of several worlds resident the cross-world
+        staging is allocated here.
         Each capture first runs its step once on the static inputs, which
         hold no request (the active layout's run is the "runs once" of
         repro's warmup). With the prefix cache on, a null self-copy of page
@@ -453,8 +463,10 @@ class Executor:
         if self._moe_host is not None:
             self._cross_stage()
         N = self.ecfg.decode_steps
+        todo = (self.layouts if layouts is None
+                else tuple(get_layout(lo) for lo in layouts))
         for bank in range(self.banks):
-            for lo in self.layouts:
+            for lo in todo:
                 for b in self.ladder_for(lo):
                     self._mixed_fn(lo, b, 1, bank)
                     if N > 1:

@@ -15,8 +15,13 @@ Batch geometry per layout:
   EP: batch slots sharded over the ranks (slot s lives on rank s // bs);
       attention weights replicated; experts rank-local with all_to_all
       dispatch.
-A dense model's MLP is width-sharded (Megatron) under both: a psum after
-it under TP; under EP an all_gather of the tokens before it and a
+  TPEP: TP's attention and batch geometry; whole experts sharded over the
+      full Dd x G mesh. Each model rank takes its 1/G slice of the
+      replicated tokens, the FFN dispatches over all Dd x G ranks at once
+      (the layer loop runs every data group to the same layer first), and
+      an all_gather within the group brings the tokens back.
+A dense model's MLP is width-sharded (Megatron) under TP and EP: a psum
+after it under TP; under EP an all_gather of the tokens before it and a
 psum_scatter after.
 
 KV pool: the unified flat buffer's layout view (serving/kvcache.py). The
@@ -60,7 +65,8 @@ def build_decode_pack(cfg: ModelConfig, params: dict, layout: str, G: int):
     stored one: rank-major experts (moe) or the rank-major dense MLP, the
     same tensors under every layout of the world. Shared experts follow
     the expert rule: width-sharded rank-major at G under TP, the global
-    (replicated) tensors under EP."""
+    (replicated) tensors under EP and TPEP (repro shards them only when
+    `expert_kind == "tp"`)."""
     spec = get_layout(layout)
     lp = params["layers"]
     pack = {"embed": params["embed"], "final_norm": params["final_norm"]}
@@ -103,11 +109,15 @@ def _embed_scale(cfg) -> float:
 
 
 def _embed_lookup(cfg, pack, tokens, spec: LayoutSpec) -> torch.Tensor:
-    """tokens (G, n) -> x (G, n, D). TP: vocab-sharded gather + psum."""
+    """tokens (G, n) -> x (G, n, D). TP: vocab-sharded gather + psum (an
+    id past the table reads zeros there); otherwise an id past the table
+    reads its last row, as repro's clamping jnp gather does (a trace may
+    draw prompt ids beyond a reduced config's vocab)."""
     emb = pack["embed"]
     sc = _embed_scale(cfg)
     if not spec.dense_tp:
-        return emb[tokens].to(cfg.compute_dtype) * sc
+        return emb[tokens.clamp(0, emb.shape[0] - 1)].to(
+            cfg.compute_dtype) * sc
     G, D = tokens.shape[0], emb.shape[1]
     Vloc = emb.shape[0] // G
     r = ranks.axis_index(G, tokens.device)[:, None]
@@ -158,14 +168,11 @@ def _write_pages(pool_l, k, v, page_ids, slots) -> None:
 
 
 def _ffn(cfg, lpk, h_flat, spec: LayoutSpec, lay_exp, trim: bool):
-    """h_flat (G, T, D) -> (G, T, D); the TP paths return AFTER the psum.
-    trim=False sizes the expert buffers at repro's static capacity (no
-    host read: the decode kinds, which run as CUDA graphs); trim=True at
-    the step's largest load (the eager prefill-chunk steps). A dense MLP
-    reads no device value on the host either way."""
-    if spec.expert_full_mesh:
-        raise NotImplementedError(
-            "full-mesh expert layouts (tpep) are not ported yet")
+    """h_flat (G, T, D) -> (G, T, D) for one data group; the TP paths
+    return AFTER the psum. trim=False sizes the expert buffers at repro's
+    static capacity (no host read: the decode kinds, which run as CUDA
+    graphs); trim=True at the step's largest load (the eager prefill-chunk
+    steps). A dense MLP reads no device value on the host either way."""
     if not cfg.is_moe:
         mlp = lpk["mlp"]                 # this layer's (G, ...) width slices
         if spec.dense_tp:
@@ -179,6 +186,23 @@ def _ffn(cfg, lpk, h_flat, spec: LayoutSpec, lay_exp, trim: bool):
     if spec.expert_kind == "tp":
         return ranks.psum(moe_decode_tp(cfg, lpk["moe"], h_flat, trim=trim))
     return moe_decode_ep(cfg, lpk["moe"], h_flat, lay_exp, trim=trim)
+
+
+def _ffn_full_mesh(cfg, lpk, hs: list, lay_exp, trim: bool) -> list:
+    """The full-mesh (`tpep`) FFN over every data group at one layer:
+    hs[d] (G, T, D) is group d's replicated TP batch. Each model rank takes
+    its 1/G token slice, the Dd x G slices stack into one rank dim and
+    dispatch over the full mesh (`moe_decode_ep` with `lay_exp` over
+    Dd * G ranks), and an all_gather within each group brings the tokens
+    back: repro's `_ffn` full-mesh branch, whose shard_map rank is one
+    (data, model) pair. Returns the per-group (G, T, D) outputs."""
+    G, T, D = hs[0].shape
+    Tl = T // G
+    ar = torch.arange(G, device=hs[0].device)
+    mine = torch.stack([h.reshape(G, G, Tl, D)[ar, ar] for h in hs])
+    y = moe_decode_ep(cfg, lpk["moe"], mine.reshape(-1, Tl, D), lay_exp,
+                      trim=trim).reshape(len(hs), G, Tl, D)
+    return [ranks.all_gather(yd, axis=0, tiled=True) for yd in y.unbind(0)]
 
 
 def _logits(cfg, pack, x, spec: LayoutSpec) -> torch.Tensor:
@@ -269,60 +293,83 @@ def _sample(cfg, pack, x, spec: LayoutSpec, seed, temperature, *,
 # Step builder
 # ---------------------------------------------------------------------------
 
-def _chunk_core(cfg, spec: LayoutSpec, pack, pool, tokens, positions,
-                valid_len, bt, seed, *, lay_exp, temperature, page, maxp, Sq,
-                substep=0, slot0=0):
-    """One Sq-token step on stacked per-rank inputs. Shared verbatim by the
-    single-step builder and the fused decode loop, so both run the same
-    math; at Sq == 1 it reads no device value on the host, so it can be
-    captured in a CUDA graph.
+def _chunk_core(cfg, spec: LayoutSpec, pack, pools, tokens, positions,
+                valid_len, bts, seed, *, lay_exp, temperature, page, maxp, Sq,
+                substep=0, slot0s):
+    """One Sq-token step on stacked per-rank inputs of every data group.
+    Shared verbatim by the single-step builder and the fused decode loop,
+    so both run the same math; at Sq == 1 it reads no device value on the
+    host, so it can be captured in a CUDA graph.
 
-    tokens (G, bs, Sq); positions/valid_len (G, bs); bt (G, bs, maxp);
-    pool (G, L, 2, pages, page, Kh, dh) = the layout's KV view, updated in
-    place; seed: 0-d int64 device tensor (read at temperature > 0).
-    Returns (next_token (G, bs), last_hidden (G, bs, D))."""
-    G, bs = tokens.shape[:2]
-    dev = tokens.device
-    x = _embed_lookup(cfg, pack, tokens.reshape(G, -1), spec)
-    x = x.reshape(G, bs, Sq, cfg.d_model)
-    # zero dead slots: garbage hiddens would otherwise contaminate the
-    # shared expert buffers
-    x = x * (valid_len > 0).to(x.dtype)[..., None, None]
-    pos_mat = positions[..., None] + torch.arange(Sq, device=dev)
-    # page targets for the chunk's K/V (invalid tail -> null page 0)
-    pidx = (pos_mat // page).clamp(0, maxp - 1)
-    in_chunk = torch.arange(Sq, device=dev) < valid_len[..., None]
-    page_ids = torch.where(in_chunk, torch.gather(bt, 2, pidx), 0)
-    slots = pos_mat % page
-    kv_total = positions + valid_len
-    cos, sin = rope_cos_sin(pos_mat, cfg.dh, cfg.rope_theta)
+    pools, tokens, positions, valid_len, bts and slot0s are lists over
+    the Dd data groups: tokens (G, bs, Sq); positions/valid_len (G, bs); bts (G, bs, maxp); pools
+    (G, L, 2, pages, page, Kh, dh) = the group's KV view, updated in
+    place; slot0s the global index of each group's first slot. The layer
+    loop is outermost: every group passes a layer's attention before any
+    runs its FFN, so the full-mesh FFN sees every group at the same layer;
+    each other layout's FFN runs per group, as repro's shard_map does.
+    seed: 0-d int64 device tensor (read at temperature > 0).
+    Returns [(next_token (G, bs), last_hidden (G, bs, D))] per group."""
+    Dd = len(tokens)
+    dev = tokens[0].device
+    hs, geo = [], []
+    for d in range(Dd):
+        G, bs = tokens[d].shape[:2]
+        x = _embed_lookup(cfg, pack, tokens[d].reshape(G, -1), spec)
+        x = x.reshape(G, bs, Sq, cfg.d_model)
+        # zero dead slots: garbage hiddens would otherwise contaminate the
+        # shared expert buffers
+        hs.append(x * (valid_len[d] > 0).to(x.dtype)[..., None, None])
+        pos_mat = positions[d][..., None] + torch.arange(Sq, device=dev)
+        # page targets for the chunk's K/V (invalid tail -> null page 0)
+        pidx = (pos_mat // page).clamp(0, maxp - 1)
+        in_chunk = torch.arange(Sq, device=dev) < valid_len[d][..., None]
+        page_ids = torch.where(in_chunk, torch.gather(bts[d], 2, pidx), 0)
+        cos, sin = rope_cos_sin(pos_mat, cfg.dh, cfg.rope_theta)
+        geo.append((page_ids, pos_mat % page, positions[d] + valid_len[d],
+                    cos, sin))
 
-    h = x
     for li, lpk in enumerate(pack["layers"]):
-        pool_l = pool[:, li]
-        hn = apply_norm(cfg, h, lpk["attn_norm"])
-        q, k, v = _project_heads(cfg, lpk["attn"], hn, cos, sin)
-        _write_pages(pool_l, k, v, page_ids, slots)
-        attn = paged_attention(q, pool_l[:, 0], pool_l[:, 1], bt, kv_total,
-                               q_offset=positions, window=cfg.sliding_window)
-        attn = attn.reshape(G, bs * Sq, -1) @ lpk["attn"]["wo"]
-        if spec.dense_tp:       # heads are sharded -> partial outputs
-            attn = ranks.psum(attn)
-        h = h + attn.reshape(G, bs, Sq, -1).to(h.dtype)
-        hn = apply_norm(cfg, h, lpk["mlp_norm"])
-        y = _ffn(cfg, lpk, hn.reshape(G, bs * Sq, -1), spec, lay_exp,
-                 trim=Sq > 1)
-        h = h + y.reshape(G, bs, Sq, -1).to(h.dtype)
-    h = apply_norm(cfg, h, pack["final_norm"])
-    # sample at the last valid position of each slot
-    last = (valid_len - 1).clamp(0, Sq - 1)
-    xl = torch.gather(h, 2, last[..., None, None].expand(G, bs, 1, h.shape[-1]))
-    xl = xl[:, :, 0]
-    return _sample(cfg, pack, xl, spec, seed, temperature, substep=substep,
-                   slot0=slot0), xl
+        hn_flat = []
+        for d in range(Dd):
+            h = hs[d]
+            G, bs = h.shape[:2]
+            page_ids, slots, kv_total, cos, sin = geo[d]
+            pool_l = pools[d][:, li]
+            hn = apply_norm(cfg, h, lpk["attn_norm"])
+            q, k, v = _project_heads(cfg, lpk["attn"], hn, cos, sin)
+            _write_pages(pool_l, k, v, page_ids, slots)
+            attn = paged_attention(q, pool_l[:, 0], pool_l[:, 1], bts[d],
+                                   kv_total, q_offset=positions[d],
+                                   window=cfg.sliding_window)
+            attn = attn.reshape(G, bs * Sq, -1) @ lpk["attn"]["wo"]
+            if spec.dense_tp:       # heads are sharded -> partial outputs
+                attn = ranks.psum(attn)
+            hs[d] = h = h + attn.reshape(G, bs, Sq, -1).to(h.dtype)
+            hn = apply_norm(cfg, h, lpk["mlp_norm"])
+            hn_flat.append(hn.reshape(G, bs * Sq, -1))
+        if spec.expert_full_mesh:
+            ys = _ffn_full_mesh(cfg, lpk, hn_flat, lay_exp, trim=Sq > 1)
+        else:
+            ys = [_ffn(cfg, lpk, hf, spec, lay_exp, trim=Sq > 1)
+                  for hf in hn_flat]
+        for d in range(Dd):
+            hs[d] = hs[d] + ys[d].reshape(hs[d].shape).to(hs[d].dtype)
+
+    out = []
+    for d in range(Dd):
+        h = apply_norm(cfg, hs[d], pack["final_norm"])
+        G, bs = h.shape[:2]
+        # sample at the last valid position of each slot
+        last = (valid_len[d] - 1).clamp(0, Sq - 1)
+        xl = torch.gather(h, 2, last[..., None, None].expand(
+            G, bs, 1, h.shape[-1]))[:, :, 0]
+        out.append((_sample(cfg, pack, xl, spec, seed, temperature,
+                            substep=substep, slot0=slot0s[d]), xl))
+    return out
 
 
-def _geometry(cfg, mesh, layout, cc, Bslot):
+def _geometry(cfg, mesh, layout, cc, Bslot, Sq=1):
     """Shared builder geometry: (Dd, G, spec, bs, lay_exp, view, page,
     maxp, rank_split). rank_split maps a data group's (Bslot, ...) rows to
     the stacked (G, bs, ...) per-rank form (EP: each rank's slot slice; TP:
@@ -332,13 +379,16 @@ def _geometry(cfg, mesh, layout, cc, Bslot):
     if spec.slots_sharded and Bslot % G:
         raise ValueError(f"layout {spec} shards {Bslot} slots over G={G}")
     bs = Bslot // G if spec.slots_sharded else Bslot
+    if spec.expert_full_mesh and (Bslot * Sq) % G:
+        raise ValueError(f"layout {spec} splits {Bslot} x {Sq} tokens over "
+                         f"G={G} ranks")
 
     def rank_split(a: torch.Tensor, *tail) -> torch.Tensor:
         if spec.slots_sharded:
             return a.reshape(G, bs, *tail)
         return a.reshape(1, bs, *tail).expand(G, bs, *tail)
 
-    return (Dd, G, spec, bs, spec.expert_layout(cfg, G),
+    return (Dd, G, spec, bs, spec.expert_layout(cfg, G, Dd * G),
             cc.view_shape(cfg, G, spec), cc.page_size,
             cc.max_pages_per_req, rank_split)
 
@@ -362,7 +412,7 @@ def build_mixed_step(cfg: ModelConfig, mesh, layout: str, cc: CacheConfig,
     the host and can be captured in a CUDA graph (core/residency.py)."""
     dev = require_device(device)
     Dd, G, spec, bs, lay_exp, view, page, maxp, rank_split = _geometry(
-        cfg, mesh, layout, cc, Bslot)
+        cfg, mesh, layout, cc, Bslot, Sq)
 
     def step(pack, kv_flat, tokens, positions, valid_len, block_table,
              key=None):
@@ -371,16 +421,16 @@ def build_mixed_step(cfg: ModelConfig, mesh, layout: str, cc: CacheConfig,
                              f"for {dev}")
         sq_pack = _squeeze_pack(cfg, spec, pack)
         seed = seed_tensor(key, dev) if temperature > 0 else None
+        res = _chunk_core(
+            cfg, spec, sq_pack, [kv_flat[d].view(G, *view) for d in range(Dd)],
+            [rank_split(tokens[d].long(), Sq) for d in range(Dd)],
+            [rank_split(positions[d].long()) for d in range(Dd)],
+            [rank_split(valid_len[d].long()) for d in range(Dd)],
+            [rank_split(block_table[d].long(), maxp) for d in range(Dd)],
+            seed, lay_exp=lay_exp, temperature=temperature, page=page,
+            maxp=maxp, Sq=Sq, slot0s=[d * Bslot for d in range(Dd)])
         nxt_all, lg_all = [], []
-        for d in range(Dd):
-            nxt, xl = _chunk_core(
-                cfg, spec, sq_pack, kv_flat[d].view(G, *view),
-                rank_split(tokens[d].long(), Sq),
-                rank_split(positions[d].long()),
-                rank_split(valid_len[d].long()),
-                rank_split(block_table[d].long(), maxp), seed,
-                lay_exp=lay_exp, temperature=temperature, page=page,
-                maxp=maxp, Sq=Sq, slot0=d * Bslot)
+        for nxt, xl in res:
             nxt_all.append(nxt.reshape(-1) if spec.slots_sharded else nxt[0])
             if return_logits:
                 lg = _logits(cfg, sq_pack, xl, spec)
@@ -430,40 +480,37 @@ def build_decode_loop(cfg: ModelConfig, mesh, layout: str, cc: CacheConfig,
                              f"for {dev}")
         sq_pack = _squeeze_pack(cfg, spec, pack)
         seed = seed_tensor(key, dev) if temperature > 0 else None
-        res = ([], [], [], [], [])
-        for d in range(Dd):
-            pool = kv_flat[d].view(G, *view)
-            bt = rank_split(block_table[d].long(), maxp)
-            tok, pos = tokens[d].long(), positions[d].long()
-            bud = budgets[d].long()
-            outs, lgs = [], []
-            for i in range(steps):
-                active = (bud > 0).long()
-                nxt, xl = _chunk_core(
-                    cfg, spec, sq_pack, pool, rank_split(tok, 1),
-                    rank_split(pos), rank_split(active), bt, seed,
-                    lay_exp=lay_exp, temperature=temperature, page=page,
-                    maxp=maxp, Sq=1, substep=i, slot0=d * Bslot)
-                nxt = nxt.reshape(-1) if spec.slots_sharded else nxt[0]
-                live = active > 0
-                outs.append(torch.where(live, nxt, 0))
-                tok = torch.where(live, nxt, tok)
-                pos = pos + active
-                bud = bud - active
-                if return_logits:
-                    lg = _logits(cfg, sq_pack, xl, spec)
-                    lgs.append(torch.cat(lg.unbind(0), dim=-1)
-                               if spec.dense_tp else lg.reshape(Bslot, -1))
-            for acc, v in zip(res, (torch.stack(outs, -1), tok, pos, bud)):
-                acc.append(v)
+        pools = [kv_flat[d].view(G, *view) for d in range(Dd)]
+        bts = [rank_split(block_table[d].long(), maxp) for d in range(Dd)]
+        tok, pos, bud = tokens.long(), positions.long(), budgets.long()
+        outs, lgs = [], []
+        for i in range(steps):
+            active = (bud > 0).long()
+            res = _chunk_core(
+                cfg, spec, sq_pack, pools,
+                [rank_split(tok[d], 1) for d in range(Dd)],
+                [rank_split(pos[d]) for d in range(Dd)],
+                [rank_split(active[d]) for d in range(Dd)], bts, seed,
+                lay_exp=lay_exp, temperature=temperature, page=page,
+                maxp=maxp, Sq=1, substep=i,
+                slot0s=[d * Bslot for d in range(Dd)])
+            nxt = torch.stack([n.reshape(-1) if spec.slots_sharded else n[0]
+                               for n, _ in res])
+            live = active > 0
+            outs.append(torch.where(live, nxt, 0))
+            tok = torch.where(live, nxt, tok)
+            pos = pos + active
+            bud = bud - active
             if return_logits:
-                res[4].append(torch.stack(lgs, 1))
+                lg = [_logits(cfg, sq_pack, xl, spec) for _, xl in res]
+                lgs.append(torch.stack([
+                    torch.cat(g.unbind(0), dim=-1) if spec.dense_tp
+                    else g.reshape(Bslot, -1) for g in lg]))
         i32 = torch.int32
-        out = (torch.stack(res[0]).to(i32), kv_flat,
-               torch.stack(res[1]).to(i32), torch.stack(res[2]).to(i32),
-               torch.stack(res[3]).to(i32))
+        out = (torch.stack(outs, -1).to(i32), kv_flat, tok.to(i32),
+               pos.to(i32), bud.to(i32))
         if return_logits:
-            out = out + (torch.stack(res[4]),)
+            out = out + (torch.stack(lgs, 2),)
         return out
 
     return loop

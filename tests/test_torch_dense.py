@@ -7,10 +7,13 @@ tiny_moe; a live dense switch, monolithic and chunked, equals the
 never-switched run; the fused loop equals single steps
 (tests/test_decode_fused.py:68); the engine serves to completion and
 replays forced lengths (tests/test_system.py:44,63); a dense model moves
-K/V alone and shares one rank-major MLP between its layouts. Across
-frameworks: repro's dense engine at mesh (1, 2), in a 2-device subprocess,
-gives the port's greedy tokens wherever repro's top-2 margin is clear
-(ROADMAP C3).
+K/V alone and shares one rank-major MLP between the layouts of a world,
+one MLP a world. Layouts of several worlds (ROADMAP A1): tp -> tp@1 -> tp
+and ep -> tp@1 -> ep, and a rank failure in each world, give the tokens
+of the run never resized or failed. Across frameworks: repro's dense
+engine at mesh (1, 2), in a 2-device subprocess, gives the port's greedy
+tokens wherever repro's top-2 margin is clear (ROADMAP C3), through a
+tp->ep switch, the resize script and a rank failure.
 """
 import json
 
@@ -205,9 +208,88 @@ def test_dense_executor_shares_one_mlp_and_holds_no_experts(dense):
 
 
 def test_dense_layouts_of_several_worlds_raise(dense):
+    """A dense model with layouts of several worlds builds one rank-major
+    MLP per world, shared by that world's packs (repro packs each layout
+    at its own world); a world past the launch world still raises."""
     cfg, params = dense
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        _engine(cfg, params, layouts=("tp", "tp@1"))
+    eng = _engine(cfg, params, layouts=("tp", "ep", "tp@1"))
+    ex = eng.ex
+    mlp = {lo: ex.packs[lo]["layers"]["mlp"] for lo in ex.layouts}
+    assert mlp["tp"]["w_up"].shape == (2, 2, cfg.d_model, cfg.d_ff // 2)
+    assert mlp["tp@1"]["w_up"].shape == (2, 1, cfg.d_model, cfg.d_ff)
+    assert mlp["tp"]["w_up"].data_ptr() == mlp["ep"]["w_up"].data_ptr()
+    assert mlp["tp"]["w_up"].data_ptr() != mlp["tp@1"]["w_up"].data_ptr()
+    nbytes = sum(w.numel() * 4 for w in params["layers"]["mlp"].values())
+    assert ex.mlp_bytes() == {1: nbytes, 2: nbytes}
+    assert ex._moe_host is None and ex._stores == [{}]
+    with pytest.raises(ValueError, match="launch world"):
+        _engine(cfg, params, layouts=("tp", "tp@4"))
+
+
+def _text(eng, prompts):
+    """rid -> generated text: the tokens a re-prefill teacher-forced into
+    the prompt, then the output."""
+    return {r.rid: list(map(int, r.prompt[len(prompts[r.rid]):]))
+            + list(map(int, r.output)) for r in eng.finished}
+
+
+def _serve_failing(eng, reqs, switches=(), fail_at=None, rank=1):
+    """`_serve` with `rank` of group 0 failing at iteration `fail_at`."""
+    from repro_torch.distributed.elastic import fail_rank
+    prompts = {r.rid: list(r.prompt) for r in reqs}
+    for r in reqs:
+        eng.submit(r)
+    todo = dict(switches)
+    i = 0
+    while eng.sched.has_work():
+        if i in todo:
+            assert eng.execute_switch(todo.pop(i))
+        if i == fail_at:
+            assert fail_rank(eng, data_group=0, rank=rank)
+        eng.step()
+        i += 1
+        assert i < 500, "engine made no progress"
+    eng.run()
+    return _text(eng, prompts)
+
+
+@pytest.mark.parametrize("chunk", [0, 1])
+@pytest.mark.parametrize("start", ["tp", "ep"])
+def test_dense_resize_preserves_outputs(dense, start, chunk):
+    """ROADMAP A1's gate: start -> tp@1 -> start (a shrink to one rank and
+    a grow back, staged through the host, monolithic or a layer a chunk)
+    gives the tokens of the run never resized, with the fused loop."""
+    cfg, params = dense
+    lay = ("tp", "ep", "tp@1")
+    base = _serve_failing(_engine(cfg, params, layouts=lay,
+                                  decode_steps=4), _reqs())
+    eng = _engine(cfg, params, layouts=lay, start_layout=start,
+                  chunk_layers=chunk, decode_steps=4)
+    assert _serve_failing(eng, _reqs(), {3: "tp@1", 7: start}) == base
+    assert eng.metrics.cross_world_switches == 2 and eng.active == start
+    eng.clear_prefix_cache()
+    for a in eng.alloc:
+        a.check()
+        assert a.total_held() == 0
+
+
+@pytest.mark.parametrize("start", ["tp", "ep", "tp@1"])
+def test_dense_rank_fail_preserves_outputs(dense, start):
+    """A rank failure (its requests re-prefill teacher-forced) in each
+    world, and inside tp@1 after a shrink, gives the text of the run
+    that never failed."""
+    cfg, params = dense
+    lay = ("tp", "ep", "tp@1")
+    base = _serve_failing(_engine(cfg, params, layouts=lay), _reqs())
+    eng = _engine(cfg, params, layouts=lay,
+                  start_layout="tp" if start == "tp@1" else start)
+    switches = {2: "tp@1"} if start == "tp@1" else {}
+    out = _serve_failing(eng, _reqs(), switches,
+                         fail_at=5 if start == "tp@1" else 3,
+                         rank=0 if start == "tp@1" else 1)
+    assert out == base
+    s = eng.metrics.summary()
+    assert s["rank_failures"] == 1 and s["recoveries"] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -264,3 +346,79 @@ def test_dense_engine_matches_repro_dense_engine(tiny_dense):
     assert_greedy_agree(tiny_dense, jp, prompts, got, want)
     assert [r.direction for r in eng.switch_records] == ref["switches"] \
         == ["tp_to_ep"]
+
+
+_REPRO_DENSE_ELASTIC = """
+import json
+import jax, jax.numpy as jnp
+from repro.configs import get_config
+from repro.core.policy import PolicyConfig
+from repro.distributed.elastic import fail_rank
+from repro.launch.mesh import make_mesh
+from repro.models.registry import init_params
+from repro.serving.engine import EngineConfig, MoebiusEngine
+from repro.serving.kvcache import CacheConfig
+from repro.serving.request import Request
+cfg = get_config("internlm2-1.8b").reduced(**{kw},
+    param_dtype=jnp.float32, compute_dtype=jnp.float32)
+mesh = make_mesh((1, 2), ("data", "model"))
+params = init_params(cfg, jax.random.PRNGKey(0))
+out = {{}}
+for name, (start, script, fail_at) in {runs}.items():
+    eng = MoebiusEngine(cfg, mesh, CacheConfig(**{cc}), params_global=params,
+        ecfg=EngineConfig(start_layout=start, layouts=("tp", "ep", "tp@1"),
+                          ladder=(4, 8), prefill_chunk=8, seed=0,
+                          policy=PolicyConfig(t_high=10**9, t_low=-1,
+                                              cooldown_s=10**9)))
+    P = {{}}
+    for r in {reqs}:
+        P[r[0]] = len(r[1])
+        eng.submit(Request(rid=r[0], prompt=r[1], max_new_tokens=r[2],
+                           arrival_s=0.0))
+    script = {{int(k): v for k, v in script.items()}}
+    i = 0
+    while eng.pending or eng.waiting or eng.prefilling or eng.running:
+        if i in script:
+            eng.execute_switch(script[i])
+        if i == fail_at:
+            fail_rank(eng, 0, 1)
+        eng.step()
+        i += 1
+    s = eng.metrics.summary()
+    out[name] = {{"out": {{r.rid: list(map(int, r.prompt[P[r.rid]:]))
+                          + list(map(int, r.output)) for r in eng.finished}},
+                 "counters": [s["cross_world_switches"], s["rank_failures"],
+                              s["recoveries"]], "active": str(eng.active)}}
+print(json.dumps(out))
+"""
+DENSE_ELASTIC_RUNS = {"resize": ("tp", {3: "tp@1", 7: "tp"}, None),
+                      "fail": ("ep", {}, 3)}
+
+
+def test_dense_elastic_engine_matches_repro_engine(tiny_dense):
+    """ROADMAP A1's gate across frameworks: repro's dense engine at mesh
+    (1, 2) and the port's, repro's weights on both sides, through the
+    resize script tp -> tp@1 -> tp and through a rank failure in ep:
+    tokens equal wherever repro's margin is clear, and equal cross-world,
+    failure and recovery counts and final layout."""
+    jp, tp = jax_params(tiny_dense)
+    reqs = _reqs()
+    code = _REPRO_DENSE_ELASTIC.format(
+        kw=TINY_DENSE_KW, cc=CC, runs=DENSE_ELASTIC_RUNS,
+        reqs=[(r.rid, list(map(int, r.prompt)), r.max_new_tokens)
+              for r in reqs])
+    ref = json.loads(run_multidevice(code, devices=2).strip().splitlines()[-1])
+    prompts = {r.rid: list(map(int, r.prompt)) for r in reqs}
+    cfg = port_tiny_dense()
+    for name, (start, script, fail_at) in DENSE_ELASTIC_RUNS.items():
+        eng = _engine(cfg, tp, layouts=("tp", "ep", "tp@1"),
+                      start_layout=start)
+        got = _serve_failing(eng, _reqs(), script, fail_at=fail_at)
+        want = {int(k): v for k, v in ref[name]["out"].items()}
+        assert_greedy_agree(tiny_dense, jp, prompts, got, want)
+        s = eng.metrics.summary()
+        assert [s["cross_world_switches"], s["rank_failures"],
+                s["recoveries"]] == ref[name]["counters"], name
+        assert str(eng.active) == ref[name]["active"]
+    assert ref["resize"]["counters"][0] == 2
+    assert ref["fail"]["counters"][1:] == [1, 1]

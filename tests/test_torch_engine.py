@@ -1,6 +1,7 @@
 """The port's engine end to end on the CPU (tiny_moe, f32): it serves to
 completion, runs deterministic, and on one trace gives repro's
-`MoebiusEngine` tokens ((1, 1) mesh, prefix cache off, temperature 0)."""
+`MoebiusEngine` tokens ((1, 1) mesh, prefix cache off, temperature 0);
+`tpep` serves resident or as the start layout."""
 import numpy as np
 import pytest
 import torch
@@ -87,19 +88,29 @@ def test_engine_serves_to_completion_and_is_deterministic(setup):
     assert outs[0] == outs[1]
 
 
-def test_engine_rejects_unported_options():
-    """What is still unported raises instead of being ignored: the
-    full-mesh `tpep` layout, resident or as the start layout."""
-    cfg = port_tiny_moe()
-    with pytest.raises(NotImplementedError):
-        MoebiusEngine(cfg, (1, 2), CacheConfig(**CC),
-                      ecfg=EngineConfig(policy=STATIC,
-                                        layouts=("tp", "tpep")),
-                      device="cpu")
-    with pytest.raises(NotImplementedError):
-        MoebiusEngine(cfg, (1, 2), CacheConfig(**CC),
-                      ecfg=EngineConfig(policy=STATIC,
-                                        start_layout="tpep"), device="cpu")
+def test_engine_rejects_unported_options(setup):
+    """The full-mesh `tpep` layout, once refused, is resident and can be
+    the start layout: at mesh (2, 2) it serves the trace to the tokens of
+    the port's tp engine (and so repro's). A family still unported
+    raises instead of being ignored."""
+    cfg, tp, _ = setup
+    outs = []
+    for start, layouts in (("tp", ("tp", "tpep")), ("tpep", ("tp", "ep"))):
+        eng = MoebiusEngine(cfg, (2, 2), CacheConfig(**CC), params_global=tp,
+                            ecfg=EngineConfig(policy=STATIC,
+                                              start_layout=start,
+                                              layouts=layouts, ladder=(4, 8),
+                                              prefill_chunk=8),
+                            device="cpu")
+        assert "tpep" in eng.layouts and eng.active == start
+        for r in _trace(Request):
+            eng.submit(r)
+        eng.run(max_steps=1000)
+        outs.append({r.rid: list(r.output) for r in eng.finished})
+    assert outs[0] == outs[1] and len(outs[0]) == 5
+    with pytest.raises(NotImplementedError, match="family"):
+        MoebiusEngine(cfg.replace(family="ssm"), (1, 2), CacheConfig(**CC),
+                      ecfg=EngineConfig(policy=STATIC), device="cpu")
 
 
 def test_sampled_serving_is_seeded(setup):

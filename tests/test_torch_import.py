@@ -23,7 +23,9 @@ def test_port_imports_no_jax_or_repro():
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "for m in ('repro_torch.serving.qos', 'repro_torch.serving.faults',\n"
-        "          'repro_torch.configs.qwen2_moe_a2_7b'):\n"
+        "          'repro_torch.configs.qwen2_moe_a2_7b',\n"
+        "          'repro_torch.serving.frontend', 'repro_torch.launch.serve',\n"
+        "          'repro_torch.launch.http'):\n"
         "    assert m in sys.modules, m\n"
         "n = sum(1 for m in sys.modules if m.startswith('repro_torch.'))\n"
         "print('ok', n)\n")
@@ -84,6 +86,15 @@ def test_entry_points_raise_without_card(monkeypatch):
         params_from_jax({"w": [1.0]})
     # the CPU runs only when asked for
     assert init_params(cfg, device="cpu")["embed"].device.type == "cpu"
+
+
+def test_launcher_defaults_to_cuda(monkeypatch):
+    """`python -m repro_torch.launch.serve` runs on the card unless
+    `--device cpu` is passed; without a card it raises."""
+    from repro_torch.launch.serve import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--workload", "rollout", "--scale", "0.005"])
 
 
 def test_kernel_wrappers_do_not_fall_back():

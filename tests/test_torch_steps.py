@@ -156,3 +156,42 @@ def test_step_logits_match_repro_step(setup, layout):
         np.testing.assert_allclose(logits[i + 1].numpy(),
                                    np.asarray(lg)[0, 0], rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["tp", "ep", "tpep"])
+def test_out_of_vocab_ids_read_as_repro(setup, layout):
+    """Prompt ids past the vocab (the launcher's traces draw up to 1000
+    against a reduced config's 256; ROADMAP C19): the port's prefill step
+    gives repro's logits, ids past the table read as repro's jnp gather
+    reads them (the last row where the table is whole, zeros from the
+    vocab-sharded lookup)."""
+    jcfg, cfg, jp, tp, _, _ = setup
+    prompt = [5, 300, 999, 17, 255, 256]
+    B, Sq, P0 = 4, 8, len(prompt)
+    ti = np.zeros((1, B, Sq), np.int32)
+    ti[:, 0, :P0] = prompt
+    vl = np.zeros((1, B), np.int32)
+    vl[:, 0] = P0
+    bt = np.zeros((1, B, 8), np.int32)
+    bt[:, 0, :3] = [1, 2, 3]
+    pos = np.zeros((1, B), np.int32)
+    cc = CacheConfig(**CC)
+    pack = build_decode_pack(cfg, pack_params(cfg, tp, layout, 1), layout, 1)
+    step = build_mixed_step(cfg, (1, 1), layout, cc, B, Sq=Sq,
+                            return_logits=True, device="cpu")
+    T = torch.from_numpy
+    _, _, lg = step(pack, torch.zeros((1, 1, cc.nelems(cfg, 1))), T(ti),
+                    T(pos), T(vl), T(bt))
+    jcc = JCacheConfig(**CC)
+    jpack = j_build_decode_pack(jcfg, j_pack_params(jcfg, jp, layout, 1),
+                                layout, 1)
+    pre = j_build_mixed_step(jcfg, make_mesh((1, 1), ("data", "model")),
+                             layout, jcc, B, Sq=Sq, return_logits=True,
+                             donate=False)
+    _, _, jlg = pre(jpack, jnp.zeros((1, 1, jcc.nelems(jcfg, 1)),
+                                     jnp.float32),
+                    jnp.asarray(ti), jnp.asarray(pos), jnp.asarray(vl),
+                    jnp.asarray(bt),
+                    jax.random.key_data(jax.random.PRNGKey(1)))
+    np.testing.assert_allclose(lg[0, 0].numpy(), np.asarray(jlg)[0, 0],
+                               rtol=1e-4, atol=1e-4)

@@ -190,8 +190,11 @@ def test_execute_switch_rejects_bad_targets(setup):
         eng.execute_switch("tp")
     with pytest.raises(ValueError, match="resident"):
         eng.execute_switch("ep")
-    with pytest.raises(NotImplementedError):
-        MoebiusEngine(cfg, (1, 2), CacheConfig(**CC), params_global=tp,
-                      ecfg=EngineConfig(policy=STATIC,
-                                        layouts=("tp", "tpep")),
-                      device="cpu")
+    # tpep, once refused, is a valid resident target: the switch commits
+    eng = MoebiusEngine(cfg, (1, 2), CacheConfig(**CC), params_global=tp,
+                        ecfg=EngineConfig(policy=STATIC,
+                                          layouts=("tp", "tpep")),
+                        device="cpu")
+    assert eng.execute_switch("tpep") and eng.active == "tpep"
+    with pytest.raises(ValueError, match="resident"):
+        eng.execute_switch("ep")
