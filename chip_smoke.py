@@ -97,7 +97,8 @@ Phases (any failure exits non-zero):
                tests/test_elastic_world.py (tp -> tp@2 and back, ep ->
                tp@2 -> ep, a tp@2 start that grows; a rank_fail before, at
                each chunk of and after a shrink): byte-identical to the run
-               that never resized or failed. Then the serve model on G = 4
+               that never resized or failed. Then the serve model, cut to
+               2 layers here (ELASTIC_LAYERS: the script's time), on G = 4
                stacked ranks with tp, ep and tp@2 resident (graphs of each
                at its own world, fused 8): from ep, rank 1 fails (its
                requests re-prefill, its pool dead until they have), ep ->
@@ -187,6 +188,24 @@ Phases (any failure exits non-zero):
                every run held to fp32 `lm_forward` as in phase 11, and 4
                requests streamed over HTTP/SSE on 127.0.0.1 through a live
                tp->tpep switch equal to the batch run of the same script.
+ 15. families — the SSM, hybrid and encoder-decoder steps
+               (serving/steps_extra.py). First small f32 models of each
+               family at mesh (1, 2): the card's tokens equal the CPU's,
+               tp's equal ep's, and whisper's chunked prefill equals token
+               by token. Then mamba2-780m (48 layers), zamba2-2.7b (54
+               mamba layers, the shared attention at 9 sites, heads of 80)
+               and whisper-base (6 + 6 layers, 1500 stub frames) whole,
+               bf16, seeded `init_params` on the card, mesh (1, 2), 8
+               requests of 32 new tokens: prompts of 64-384 tokens fed one
+               a dispatch (the recurrent families, their steps replayed
+               from CUDA graphs), teacher-forced prefixes of 16-64 tokens
+               as prefill chunks of 16 mixed with decode rows (whisper,
+               eager). Served in tp and in ep; every token held to the
+               family's fp32 forward by the margin rule of phase 11 (0
+               clear-margin differences), tp == ep up to an unclear margin.
+               Prints tok/s, ms a dispatch, the state and pool bytes, #1's
+               launches and the peak memory. The kernels phase holds #1 at
+               these models' shapes (dh 80; Sq 16 with decode rows).
 
 `python3 chip_smoke.py --only reference,dense` runs the named phases alone
 (after the build) and prints no kernels line and no result line.
@@ -317,8 +336,11 @@ def max_errs(got, ref) -> tuple[float, float, bool]:
 # ---------------------------------------------------------------------------
 
 def attention_case(gen, *, G, B, Sq, H, K, kv_lo, kv_hi, window=0,
-                   dh=128, page=16):
-    """Inputs of one paged-attention call as the step builds them."""
+                   dh=128, page=16, decode_rows=False):
+    """Inputs of one paged-attention call as the step builds them.
+    decode_rows: every odd batch row is a decode row in a prefill-chunk
+    step (one valid query at kv_len - 1, its Sq - 1 tail rows dropped by
+    the step), as the encoder-decoder's mixed steps carry them."""
     import torch
     dev, i32, bf = "cuda", torch.int32, torch.bfloat16
     kv_lens = torch.randint(kv_lo, kv_hi + 1, (G, B), generator=gen,
@@ -330,9 +352,12 @@ def attention_case(gen, *, G, B, Sq, H, K, kv_lo, kv_hi, window=0,
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf)
+    q_off = kv_lens - Sq
+    if decode_rows:
+        q_off[:, 1::2] = kv_lens[:, 1::2] - 1
     return dict(q=randn(G, B, Sq, H, dh), k_pool=randn(G, pages, page, K, dh),
                 v_pool=randn(G, pages, page, K, dh), block_table=bt.to(i32),
-                kv_lens=kv_lens.to(i32), q_offset=(kv_lens - Sq).to(i32),
+                kv_lens=kv_lens.to(i32), q_offset=q_off.to(i32),
                 window=window)
 
 
@@ -445,7 +470,16 @@ def phase_kernels(results: dict) -> None:
                                       kv_lo=6000, kv_hi=6000, window=4096)),
         ("ep_decode_long", dict(G=2, B=4, Sq=1, H=64, K=4, kv_lo=16384,
                                 kv_hi=32768)),
+        # the families' shapes (phase 15), each rank's: zamba2-2.7b's
+        # shared attention in ep (32/32 heads of 80, group 1), and
+        # whisper-base's decoder in ep (8/8 heads of 64) with prefill
+        # chunks of 16 mixed with decode rows
+        ("zamba2_decode", dict(G=2, B=4, Sq=1, H=32, K=32, dh=80, kv_lo=64,
+                               kv_hi=416)),
+        ("whisper_mixed", dict(G=2, B=4, Sq=16, H=8, K=8, dh=64, kv_lo=16,
+                               kv_hi=96, decode_rows=True)),
     ]
+    split_cases = ("zamba2_decode", "whisper_mixed")
     worst = 0.0
     row = None
     for name, kw in att_cases:
@@ -504,6 +538,18 @@ def phase_kernels(results: dict) -> None:
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) = {b_ms / ms:.1%} of bound, "
               f"{nb / 1e6:.1f} MB", flush=True)
+        if name in split_cases:
+            # each call's device time apart from the host time it takes to
+            # enqueue, the kernel's and SDPA's (on pre-gathered KV)
+            dev_ms, host_us = split_times(
+                lambda: paged_attention_cuda(*args, window=a["window"]))
+            lib_dev_ms, lib_host_us = split_times(
+                lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                       attn_mask=mask))
+            print(f"attention {name}: device {dev_ms:.4f} ms + host "
+                  f"{host_us:.1f} us a call, sdpa device {lib_dev_ms:.4f} "
+                  f"ms + host {lib_host_us:.1f} us; {card_line()}",
+                  flush=True)
         if row is None:
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib_ms)
@@ -2227,6 +2273,8 @@ def phase_prefix(results: dict) -> None:
 # width with this page geometry placed them): rank 1 fails in ep while its
 # two requests prefill, the shrink finds requests mid-prefill and running,
 # the failure inside tp@2 hits the whole group, the grow finds five live
+ELASTIC_LAYERS = 2          # of qwen3-235b's 94: the serve model's 4 cut
+                            # to 2 to keep the script under 15 minutes
 ELASTIC_FAIL_EP = 4         # rank_fail rank 1 in ep (degraded pool)
 ELASTIC_SHRINK = 8          # ep -> tp@2 chunked, a layer a chunk
 ELASTIC_FAIL_TP2 = 12       # rank_fail rank 1 in tp@2 (the whole group)
@@ -2375,8 +2423,8 @@ def req_kv(kv, cfg, cc, G: int, spec, pool: int, pages: list, n: int):
 
 
 def phase_elastic(results: dict) -> None:
-    """(a) phase_elastic_small; (b) qwen3-235b-a22b at full width (4
-    layers, bf16) on G = 4 stacked ranks with tp, ep and tp@2 resident
+    """(a) phase_elastic_small; (b) qwen3-235b-a22b at full width
+    (ELASTIC_LAYERS = 2 layers, bf16) on G = 4 stacked ranks with tp, ep and tp@2 resident
     (`EngineConfig()` defaults, prefill chunk 128, fused loop of 8, graphs
     of every layout at its own world): the serve phase's 8 requests from
     ep, a rank_fail of rank 1 in ep, a chunked ep -> tp@2 switch (layout and
@@ -2410,6 +2458,7 @@ def phase_elastic(results: dict) -> None:
     phase_elastic_small()
     print(f"elastic small: {time.time() - t0:.1f} s", flush=True)
     cfg, cc = serve_model()
+    cfg = cfg.replace(num_layers=ELASTIC_LAYERS)
     L, G = cfg.num_layers, 4
     prompts = serve_prompts(cfg)
 
@@ -4741,6 +4790,543 @@ def phase_launch(results: dict) -> None:
           f"model {time.time() - t2:.1f} s; {card_line()}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the SSM, hybrid and encoder-decoder families, whole
+# ---------------------------------------------------------------------------
+
+FAMILY_MODELS = ("mamba2-780m", "zamba2-2.7b", "whisper-base")
+FAMILY_NEW = 32             # new tokens a request
+FAMILY_CHUNK = 16           # whisper's prefill-chunk rows
+FAMILY_F32_TOL = 1e-3      # fp32 step vs fp32 forward, x max |logit|
+# held to the bf16 floor, their fp32 step to the forward (ROADMAP C21)
+FAMILY_BF16_FLOOR = ("mamba2-780m", "zamba2-2.7b")
+
+
+class FamilyServe:
+    """One family model's serve step (serving/steps_extra.py) in one
+    layout at mesh (1, 2), driven from the host over `Bslot` slots: static
+    device inputs the host writes each dispatch, the states (SSM), the
+    paged KV (hybrid, encdec) and the cross cache (encdec). graphs=True
+    captures each step shape once (core/residency.ResidentRuntime, as the
+    engine does for its decode steps) and replays it; the captured kernel
+    launches count at every replay. A row feeds its prompt (one token a
+    dispatch for the recurrent families, chunks of FAMILY_CHUNK for
+    encdec), then its own samples, or a given stream (teacher forcing),
+    one a dispatch; a finished row goes dead (valid 0)."""
+
+    def __init__(self, cfg, params, layout, cc, Bslot, *, frames=None,
+                 graphs=False, device="cuda"):
+        import torch
+
+        from repro_torch.core.layouts import pack_params
+        from repro_torch.core.residency import ResidentRuntime
+        from repro_torch.serving import steps_extra as sx
+        self.cfg, self.layout, self.B, self.dev = cfg, layout, Bslot, device
+        fam = cfg.family
+        G = 2
+        pk = pack_params(cfg, params, layout, G)
+        self.kv = self.st = self.xkv = None
+        if fam != "ssm":
+            self.kv = torch.zeros((1, G, cc.nelems(cfg, G)),
+                                  dtype=cfg.param_dtype, device=device)
+        if fam != "encdec":
+            self.st = sx.ssm_states(cfg, 1, Bslot, device=device)
+        if fam == "ssm":
+            self.pack = sx.ssm_decode_pack(cfg, pk, layout, G)
+            build = lambda Sq: sx.build_ssm_serve_step(  # noqa: E731
+                cfg, (1, G), layout, Bslot, return_logits=True,
+                device=device)
+        elif fam == "hybrid":
+            self.pack = sx.hybrid_decode_pack(cfg, pk, layout, G)
+            build = lambda Sq: sx.build_hybrid_serve_step(  # noqa: E731
+                cfg, (1, G), layout, cc, Bslot, return_logits=True,
+                device=device)
+        else:
+            self.pack = sx.encdec_decode_pack(cfg, pk, layout, G)
+            build = lambda Sq: sx.build_encdec_serve_step(  # noqa: E731
+                cfg, (1, G), layout, cc, Bslot, cfg.encoder_seq, Sq,
+                return_logits=True, device=device)
+            with torch.inference_mode():
+                self.xkv = sx.encdec_cross_cache(cfg, params, frames, layout,
+                                                 G)[None]
+        del pk
+        self.sqs = (FAMILY_CHUNK, 1) if fam == "encdec" else (1,)
+        i32 = torch.int32
+        self.tok = {Sq: torch.zeros((1, Bslot, Sq), dtype=i32, device=device)
+                    for Sq in self.sqs}
+        self.pos = torch.zeros((1, Bslot), dtype=i32, device=device)
+        self.vl = torch.zeros((1, Bslot), dtype=i32, device=device)
+        per = cc.max_pages_per_req
+        bs = Bslot if layout == "tp" else Bslot // G
+        bt = torch.zeros((1, Bslot, per), dtype=i32)
+        for j in range(Bslot):
+            bt[0, j] = 1 + (j % bs) * per + torch.arange(per)
+        self.bt = bt.to(device)
+        self.steps = {Sq: build(Sq) for Sq in self.sqs}
+        self.rt = ResidentRuntime(torch.device(device), graphs=graphs)
+        self.fns = {Sq: self.rt.get_or_build((Sq,), lambda Sq=Sq:
+                                             self._call(Sq))
+                    for Sq in self.sqs}
+        self.reset()     # the capture's warm-up call advanced the states
+
+    def _call(self, Sq):
+        def fn():
+            s = self.steps[Sq]
+            if self.cfg.family == "ssm":
+                out = s(self.pack, *self.st.values(), self.tok[Sq], self.vl)
+            elif self.cfg.family == "hybrid":
+                out = s(self.pack, self.kv, *self.st.values(), self.tok[Sq],
+                        self.pos, self.vl, self.bt)
+            else:
+                out = s(self.pack, self.kv, self.xkv, self.tok[Sq], self.pos,
+                        self.vl, self.bt)
+            return out[0], out[-1]
+        return fn
+
+    def reset(self) -> None:
+        for t in ([] if self.st is None else list(self.st.values())) + \
+                ([] if self.kv is None else [self.kv]):
+            t.zero_()
+
+    def state_bytes(self) -> int:
+        return sum(t.nbytes for t in (self.st or {}).values())
+
+    def run(self, prompts, forced=None, n_new=FAMILY_NEW) -> tuple:
+        """-> (rid -> tokens, rid -> fp32 logit rows (n_new, V) on the card,
+        dispatches, wall seconds). `forced`: rid -> the stream to feed in
+        place of the row's own samples (teacher forcing; its tokens are
+        still the step's samples)."""
+        import torch
+        self.reset()
+        V = self.cfg.vocab_size
+        n = len(prompts)
+        pos = [0] * n
+        outs = [[] for _ in range(n)]
+        rows = [[] for _ in range(n)]
+        disp = 0
+        sync = (torch.cuda.synchronize if str(self.dev) != "cpu"
+                else lambda: None)
+        sync()
+        t0 = time.time()
+        while any(len(o) < n_new for o in outs):
+            prefill = any(pos[i] < len(prompts[i]) - 1 for i in range(n)
+                          if len(outs[i]) < n_new)
+            Sq = self.sqs[0] if prefill else 1
+            tok = torch.zeros((1, self.B, Sq), dtype=torch.int32)
+            p = torch.zeros((1, self.B), dtype=torch.int32)
+            vl = torch.zeros((1, self.B), dtype=torch.int32)
+            emit = []
+            for i in range(n):
+                if len(outs[i]) >= n_new:
+                    continue
+                feed = forced[i][:len(outs[i])] if forced else outs[i]
+                seq = list(prompts[i]) + list(feed)
+                c = seq[pos[i]:pos[i] + Sq]
+                tok[0, i, :len(c)] = torch.tensor(c, dtype=torch.int32)
+                p[0, i], vl[0, i] = pos[i], len(c)
+                pos[i] += len(c)
+                if pos[i] >= len(prompts[i]):
+                    emit.append(i)
+            self.tok[Sq].copy_(tok)
+            self.pos.copy_(p)
+            self.vl.copy_(vl)
+            nxt, lg = self.fns[Sq]()
+            disp += 1
+            if emit:
+                idx = torch.tensor(emit, device=self.dev)
+                got = lg[0, idx, :V].float()
+                nx = nxt[0].cpu()
+                for k, i in enumerate(emit):
+                    outs[i].append(int(nx[i]))
+                    rows[i].append(got[k])
+        sync()
+        wall = time.time() - t0
+        return ({i: outs[i] for i in range(n)},
+                {i: torch.stack(rows[i]) for i in range(n)}, disp, wall)
+
+
+def family_forward(cfg, params, toks, frames=None, dtype=None):
+    """The family's plain forward (ssm_lm_forward, hybrid_forward,
+    encdec_forward) on the card over `params`, computing in `dtype`."""
+    from repro_torch.models.registry import forward
+    c = cfg if dtype is None else cfg.replace(compute_dtype=dtype)
+    batch = {"tokens": toks}
+    if frames is not None:
+        batch["frames"] = frames
+    return forward(c, params, batch)
+
+
+def family_references(cfg, params, prompts, streams, frames, what: str,
+                      bf16: bool = True) -> dict:
+    """The family's forward on the card along every served stream, one
+    forward of prompt + output per request and distinct stream: in fp32
+    (TF32 off) over `params`, and (bf16) in bf16 compute over the same
+    weights, the reference's own bf16 path. Returns layout -> rid ->
+    (fp32 logits, bf16 logits or None), each (n_new, V)."""
+    import torch
+    out, memo = {}, {}
+    t0 = time.time()
+    for w, s in streams.items():
+        out[w] = {}
+        for i, p in enumerate(prompts):
+            seq = tuple(p) + tuple(s[i][:-1])
+            if seq not in memo:
+                f = None if frames is None else frames[i:i + 1]
+                toks = torch.tensor([seq], device=params["embed"].device)
+                with torch.inference_mode():
+                    l32 = family_forward(cfg, params, toks, f,
+                                         torch.float32)[0, len(p) - 1:,
+                                                        :cfg.vocab_size]
+                    l16 = (family_forward(cfg, params, toks, f,
+                                          torch.bfloat16)[
+                        0, len(p) - 1:, :cfg.vocab_size].float()
+                        if bf16 else None)
+                check(bool(torch.isfinite(l32).all()),
+                      f"{what}: non-finite reference logits")
+                memo[seq] = (l32.float(), l16)
+            out[w][i] = memo[seq]
+    print(f"{what}: {len(memo)} distinct streams through the fp32"
+          f"{' and bf16' if bf16 else ''} forward on the card in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return out
+
+
+def family_margins(refs, logits, other, what: str) -> dict:
+    """The reference phase's margin rule (ROADMAP C13) for a family step:
+    along each layout's served stream the fp32 forward gives the argmax
+    and top-2 margin m at every output position; the margin is clear
+    above the larger of BF16_TOL x max |logit| and MARGIN_HEADROOM x its
+    largest change between the same two ids along equivalent bf16 paths:
+    the other layout's step teacher-forced along this stream (`other`),
+    and the forward itself in bf16 compute. Returns layout -> rid ->
+    [(argmax, m, tolerance, the bf16 forward's argmax)] and prints the
+    last-prompt-position logit errors of each layout and of the bf16
+    forward. Also returns layout -> (the mean over every output position
+    of the served logits' max |d| / max |logit| from the fp32 forward's,
+    the same of the forward's own bf16 compute): the bf16 floor of
+    ROADMAP C21."""
+    import torch
+    out, floor = {}, {}
+    for w, lw in logits.items():
+        out[w] = {}
+        err = err16 = 0.0
+        e_all, e16_all = [], []
+        for i, lg in lw.items():
+            l32, l16 = refs[w][i]
+            top = l32.topk(2, dim=-1)
+            a, b = top.indices[:, 0], top.indices[:, 1]
+            m = top.values[:, 0] - top.values[:, 1]
+            r = torch.arange(len(m), device=m.device)
+
+            def marg(x):
+                return x[r, a] - x[r, b]
+            noise = torch.maximum((marg(l16) - m).abs(),
+                                  (marg(lg) - marg(other[w][i])).abs())
+            tol = torch.maximum(BF16_TOL * lg.abs().amax(-1),
+                                MARGIN_HEADROOM * noise)
+            out[w][i] = list(zip(a.tolist(), m.tolist(), tol.tolist(),
+                                 l16.argmax(-1).tolist()))
+            big = l32.abs().amax(-1)
+            e = (lg - l32).abs().amax(-1) / big
+            e16 = (l16 - l32).abs().amax(-1) / big
+            err, err16 = max(err, float(e[0])), max(err16, float(e16[0]))
+            e_all.append(e)
+            e16_all.append(e16)
+        floor[w] = (float(torch.cat(e_all).mean()),
+                    float(torch.cat(e16_all).mean()))
+        print(f"{what} {w}: last-prompt-position logits against the fp32 "
+              f"forward, max |d| / max |logit| = {err:.4e} (the forward's "
+              f"own bf16 compute: {err16:.4e}); over every output position "
+              f"the mean {floor[w][0]:.4e} (bf16 forward {floor[w][1]:.4e})",
+              flush=True)
+    return out, floor
+
+
+def family_hold(streams, margins, what: str) -> dict:
+    """Every served token against the fp32 argmax along its own stream:
+    counts the positions equal, clear, differing at unclear and at clear
+    margins (the unchanged rule wants 0 of the last), and the positions
+    where the served tokens and the forward's own bf16 compute part from
+    the fp32 argmax (the bf16 floor, ROADMAP C21). Then tp's tokens
+    against ep's up to their first difference, which must sit at an
+    unclear margin. Returns the counts a layout."""
+    res = {}
+    for w, got in streams.items():
+        n = dict(equal=0, clear=0, unclear_diff=0, served_off=0, bf16_off=0)
+        bad = []
+        for i, toks in got.items():
+            for j, t in enumerate(toks):
+                a, m, tol, a16 = margins[w][i][j]
+                clear = m > tol
+                n["clear"] += clear
+                n["served_off"] += t != a
+                n["bf16_off"] += a16 != a
+                if t == a:
+                    n["equal"] += 1
+                elif clear:
+                    bad.append((i, j, t, a, round(m, 4), round(tol, 4)))
+                else:
+                    n["unclear_diff"] += 1
+        n["bad"] = bad
+        res[w] = n
+        pos = sum(map(len, got.values()))
+        print(f"{what} {w}: {pos} positions held to the fp32 argmax along "
+              f"its own stream: {n['equal']} equal, {n['clear']} at a clear "
+              f"margin, {n['unclear_diff']} differ at unclear margins, "
+              f"{len(bad)} differ at clear ones {bad[:4]}; off the fp32 "
+              f"argmax: served {n['served_off']}, the forward's own bf16 "
+              f"{n['bf16_off']}", flush=True)
+    tp, ep = streams["tp"], streams["ep"]
+    same = parted = 0
+    for i in tp:
+        for j, (x, y) in enumerate(zip(tp[i], ep[i])):
+            if x == y:
+                same += 1
+                continue
+            _, m, tol, _ = margins["tp"][i][j]
+            check(m <= tol, f"{what}: tp and ep part at request {i} token "
+                            f"{j} at a clear margin {m:.4f} > {tol:.4f}")
+            parted += 1
+            break
+    print(f"{what}: tp == ep at {same} positions up to the first "
+          f"difference; {parted} requests part, each at an unclear margin",
+          flush=True)
+    return res
+
+
+def family_fp32_step(cfg, params, cc, prompts, frames, what: str,
+                     layouts=("tp", "ep")) -> None:
+    """The step itself computing in fp32 at full size: the same bf16
+    weights widened to fp32 (exact), states, K/V and attention (#1's f32
+    path) in fp32, tp and ep, against the fp32 forward along the step's
+    own streams. A margin flips only if the logits move by half of it, so
+    every token must equal the fp32 argmax wherever the margin exceeds
+    twice that position's largest |logit| difference, and the logits must
+    lie within FAMILY_F32_TOL x max |logit| of the forward's."""
+    import torch
+    c32 = cfg.replace(param_dtype=torch.float32, compute_dtype=torch.float32)
+    p32 = _tree_to(params, torch.float32)
+    f32 = None if frames is None else frames.float()
+    streams, logits = {}, {}
+    for lo in layouts:
+        run = FamilyServe(c32, p32, lo, cc, 8, frames=f32,
+                          graphs=cfg.family != "encdec",
+                          device=str(params["embed"].device))
+        streams[lo], logits[lo], disp, wall = run.run(prompts)
+        del run
+        print(f"{what} fp32 step {lo}: {disp} dispatches in {wall:.3f} s",
+              flush=True)
+    refs = family_references(c32, p32, prompts, streams, f32, what,
+                             bf16=False)
+    for lo in streams:
+        err = flips = clear = 0
+        for i, lg in logits[lo].items():
+            l32 = refs[lo][i][0]
+            d = (lg - l32).abs().amax(-1)
+            err = max(err, float((d / l32.abs().amax(-1)).max()))
+            top = l32.topk(2, dim=-1)
+            m = top.values[:, 0] - top.values[:, 1]
+            ok = m > 2 * d
+            clear += int(ok.sum())
+            same = torch.tensor(streams[lo][i], device=m.device) == \
+                top.indices[:, 0]
+            flips += int((ok & ~same).sum())
+        print(f"{what} fp32 step {lo}: logits within {err:.3e} x max |logit| "
+              f"of the fp32 forward along its own streams; {clear} of "
+              f"{sum(map(len, streams[lo].values()))} positions clear of "
+              f"twice the logit "
+              f"difference, {flips} tokens off the argmax there", flush=True)
+        check(err <= FAMILY_F32_TOL and flips == 0,
+              f"{what} fp32 step {lo}: logit error {err} (tolerance "
+              f"{FAMILY_F32_TOL}), {flips} clear tokens off the argmax")
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_small() -> None:
+    """Small f32 models of the three families at mesh (1, 2): the card's
+    tokens (kernels) == the CPU's (plain versions), tp == ep byte for
+    byte, and for whisper chunked prefill == token by token."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.kvcache import CacheConfig
+    cc = CacheConfig(page_size=16, pages_ep=16, max_pages_per_req=4)
+    rng = np.random.default_rng(SEED)
+    for name in FAMILY_MODELS:
+        kw = dict(num_heads=4, num_kv_heads=4,
+                  head_dim=80 if name == "zamba2-2.7b" else 64)
+        cfg = get_config(name).reduced(**(kw if name != "mamba2-780m"
+                                          else {}))
+        params = init_params(cfg, SEED, device="cpu")
+        prompts = [list(rng.integers(1, cfg.vocab_size,
+                                     int(rng.integers(8, 24))))
+                   for _ in range(4)]
+        frames = None
+        if cfg.family == "encdec":
+            frames = torch.from_numpy(rng.standard_normal(
+                (4, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+        toks = {}
+        dispatch.reset_counts()
+        for dev in ("cpu", "cuda"):
+            p = _tree_to(params, dev)
+            f = None if frames is None else frames.to(dev)
+            for layout in ("tp", "ep"):
+                run = FamilyServe(cfg, p, layout, cc, 4, frames=f,
+                                  device=dev)
+                toks[dev, layout] = run.run(prompts, n_new=8)[0]
+                if cfg.family == "encdec":
+                    run.sqs = (1,)       # one token a dispatch
+                    toks[dev, layout, 1] = run.run(prompts, n_new=8)[0]
+        first = toks["cpu", "tp"]
+        check(all(v == first for v in toks.values()),
+              f"families small {name}: tokens differ across card/CPU, "
+              f"tp/ep or chunking: {toks}")
+        n_att = dispatch.calls("paged_attention")
+        check((n_att > 0) == (cfg.family != "ssm"),
+              f"families small {name}: {n_att} attention launches")
+        print(f"families small {name} (f32, dh {cfg.dh}): card == CPU, "
+              f"tp == ep" + (", chunked == token by token"
+                             if cfg.family == "encdec" else "")
+              + f" on 4 requests x 8 tokens; {n_att} attention launches",
+              flush=True)
+
+
+def family_model(name: str):
+    """(config, cache geometry, prompts) of a whole family model."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.kvcache import CacheConfig
+    cfg = get_config(name)
+    rng = np.random.default_rng(SEED + 15)
+    if cfg.family == "encdec":
+        lens = rng.integers(16, 65, 8)
+        cc = CacheConfig(page_size=16, pages_ep=40, max_pages_per_req=8)
+    else:
+        lens = rng.integers(64, 385, 8)
+        lens[0] = 384
+        cc = CacheConfig(page_size=16, pages_ep=128, max_pages_per_req=27)
+    prompts = [list(rng.integers(5, cfg.vocab_size, int(n))) for n in lens]
+    return cfg, cc, prompts
+
+
+def family_whole(name: str, results: dict) -> None:
+    """One family model whole (full width and depth, bf16, seeded
+    `init_params` on the card) at mesh (1, 2) with 8 requests, served in
+    tp and in ep, then each layout's stream teacher-forced through the
+    other layout's step; every served token held to the fp32 forward by
+    the margin rule (`family_margins`, `family_hold`)."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import (count_params_actual,
+                                             init_params)
+    cfg, cc, prompts = family_model(name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = init_params(cfg, SEED, device="cuda")
+    nparam = count_params_actual(params)
+    frames = None
+    if cfg.family == "encdec":
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+        frames = torch.randn((8, cfg.encoder_seq, cfg.d_model),
+                             generator=gen, device="cuda").to(
+                                 cfg.param_dtype)
+    graphs = cfg.family != "encdec"
+    runs = {lo: FamilyServe(cfg, params, lo, cc, 8, frames=frames,
+                            graphs=graphs) for lo in ("tp", "ep")}
+    t_build = time.time() - t0
+    streams, logits, other = {}, {}, {}
+    dispatch.reset_counts()
+    for lo, run in runs.items():
+        streams[lo], logits[lo], disp, wall = run.run(prompts)
+        toks = sum(map(len, streams[lo].values()))
+        check(toks == 8 * FAMILY_NEW, f"{name} {lo}: {toks} tokens")
+        kv_b = 0 if run.kv is None else run.kv.nbytes
+        print(f"{name} {lo}: 8 requests (prompts {min(map(len, prompts))}-"
+              f"{max(map(len, prompts))}), {toks} tokens in {disp} "
+              f"dispatches, {wall:.3f} s: {toks / wall:.2f} tok/s, "
+              f"{wall / disp * 1e3:.3f} ms a dispatch (a token a row)"
+              f"{', graphed' if graphs else ', eager'}; states "
+              f"{run.state_bytes() / 1e6:.1f} MB "
+              f"({run.state_bytes() / 8 / 1e6:.2f} MB a slot), KV pool "
+              f"{kv_b / 1e6:.1f} MB; {card_line()}", flush=True)
+    for lo, run in runs.items():
+        o = "ep" if lo == "tp" else "tp"
+        _, other[lo], _, _ = runs[o].run(prompts, forced=streams[lo])
+    n_att = dispatch.calls("paged_attention") + sum(
+        run.rt.replayed_launches().get("paged_attention", 0)
+        for run in runs.values())
+    check((n_att > 0) == (cfg.family != "ssm"),
+          f"{name}: {n_att} attention launches")
+    if n_att:
+        results["launches"]["paged_attention"] = (
+            results["launches"].get("paged_attention", 0) + n_att)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{name}: {nparam / 1e6:.1f} M parameters "
+          f"({nparam * 2 / 1e9:.2f} GB bf16), both layouts built in "
+          f"{t_build:.1f} s; #1 paged_attention launches "
+          f"{n_att} (dh {cfg.dh}); peak {peak / 2**30:.2f} GiB",
+          flush=True)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs = family_references(cfg, params, prompts, streams, frames, name)
+    margins, floor = family_margins(refs, logits, other, name)
+    del refs, logits, other
+    res = family_hold(streams, margins, name)
+    for lo, n in res.items():
+        n["err"], n["err16"] = floor[lo]
+    family_fp32_step(cfg, params, cc, prompts, frames, name,
+                     layouts=("tp", "ep") if cfg.family == "encdec"
+                     else ("tp",))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_families(results: dict) -> None:
+    """Small f32 models of the three families (card == CPU, tp == ep,
+    whisper chunked == token by token), then mamba2-780m, zamba2-2.7b and
+    whisper-base whole, each held to its fp32 forward."""
+    t0 = time.time()
+    family_small()
+    print(f"families: small models in {time.time() - t0:.1f} s", flush=True)
+    res = {}
+    for name in FAMILY_MODELS:
+        t1 = time.time()
+        res[name] = family_whole(name, results)
+        print(f"families: {name} in {time.time() - t1:.1f} s", flush=True)
+    print(f"families: {time.time() - t0:.1f} s; {card_line()}", flush=True)
+    for name, r in res.items():
+        for lo, n in r.items():
+            if name not in FAMILY_BF16_FLOOR:
+                check(not n["bad"], f"{name} {lo}: {len(n['bad'])} "
+                                    f"clear-margin differences: "
+                                    f"{n['bad'][:6]}")
+                continue
+            # ROADMAP C21: at 48-54 mamba layers the unchanged rule cannot
+            # clear single bf16 tokens; the fp32 step carries the token
+            # check (family_fp32_step) and the bf16 serve is held to the
+            # floor of the forward's own bf16 compute
+            print(f"{name} {lo} (C21): served logits {n['err']:.4e} from "
+                  f"fp32 against the bf16 forward's {n['err16']:.4e} (mean "
+                  f"max |d| / max |logit|); tokens off the fp32 argmax "
+                  f"{n['served_off']} against its {n['bf16_off']}; "
+                  f"{len(n['bad'])} clear-margin differences by the "
+                  f"unchanged rule", flush=True)
+            check(n["err"] <= 2 * n["err16"]
+                  and n["served_off"] <= 2 * n["bf16_off"],
+                  f"{name} {lo}: above twice the bf16 floor (C21)")
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them: every
     number this script prints stands beside them."""
@@ -4793,7 +5379,8 @@ def main() -> int:
               ("reference", lambda: phase_reference(results)),
               ("dense", lambda: phase_dense(results)),
               ("shared", lambda: phase_shared(results)),
-              ("launch", lambda: phase_launch(results))]
+              ("launch", lambda: phase_launch(results)),
+              ("families", lambda: phase_families(results))]
     results: dict = {"launches": {}}
     t_run = time.time()
     for name, fn in phases:

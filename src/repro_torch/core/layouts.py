@@ -319,11 +319,43 @@ def shared_rank_major(moe: dict, G: int) -> dict:
     return out
 
 
+#: SSM leaves split by channel or head under TP (the last dim, except
+#: out_proj's rows); wB, wC, conv_B and conv_C stay replicated, as repro's
+#: ssm_pack_specs has them (one group of B/C for all heads)
+SSM_SPLIT_LAST = ("wz", "wx", "wdt", "A_log", "Dskip", "dt_bias", "conv_x",
+                  "norm")
+
+
+def ssm_rank_major(ssm: dict, G: int) -> dict:
+    """Stacked Mamba2 weights (L, ...) -> TP rank-major over a G-rank group,
+    the form repro's ssm_pack_specs gives each rank inside shard_map: rank r
+    holds a contiguous block of heads (channels [r Din/G, (r+1) Din/G) of
+    wz / wx / conv_x / norm, heads [r H/G, (r+1) H/G) of wdt / A_log /
+    Dskip / dt_bias, those rows of out_proj), so the global SSM state of a
+    slot stays one tensor whose rank slice is a view. Split leaves become
+    (L, G, ..., n/G) (out_proj (L, G, Din/G, D)), materialized; the
+    replicated ones pass through."""
+    out = dict(ssm)
+    for k in SSM_SPLIT_LAST + ("out_proj",):
+        w = ssm[k]
+        ax = 1 if k == "out_proj" else w.dim() - 1
+        n = w.shape[ax]
+        if n % G:
+            raise ValueError(f"SSM leaf {k!r}: {n} does not split over "
+                             f"G={G} ranks")
+        shp = list(w.shape)
+        shp[ax:ax + 1] = [G, n // G]
+        out[k] = torch.movedim(w.reshape(shp), ax, 1).contiguous()
+    return out
+
+
 def pack_params(cfg: ModelConfig, params: dict, layout: str, G: int,
                 expert_G: int | None = None) -> dict:
     """Init-time global params -> stored form for `layout` on a G-rank
     group (rank-major experts, or the rank-major dense MLP; vocab padded to
-    a multiple of 256)."""
+    a multiple of 256). The SSM, hybrid and encoder-decoder trees are
+    stored global with their vocab tables padded, as repro stores them;
+    their decode packs (serving/steps_extra.py) go rank-major."""
     spec = get_layout(layout)
     params = pad_vocab_tables(params, cfg.vocab_size,
                               padded_vocab(cfg.vocab_size))

@@ -43,6 +43,12 @@
 // f32 design (paged_attn_kernel, unchanged from the first port): one block
 // per (rank, row, KV head, 32-row tile) walks the live pages serially with
 // fp32 FMA out of shared memory. The path is chosen by dtype alone.
+//
+// Head dims: 64, 80 and 128 (zamba2's shared attention has dh 80). At 80 a
+// K/V row is ten 16-byte chunks, not a multiple of eight: the shared-memory
+// swizzle of the bf16 tiles flips the chunk's low bit on rows 4-7 of every
+// eight (kv_off), QK^T runs five k-steps (the last through ldmatrix.x2),
+// and the f32 kernel's threads past kRowsPerPass * DH sit out the PV pass.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,10 +108,13 @@ paged_attn_kernel(const float* __restrict__ q, const float* __restrict__ kpool,
     l_s[tid] = 0.f;
   }
 
+  // thread -> (row, d) of the PV pass: kRowsPerPass rows of DH threads;
+  // at DH 80 that is 3 rows of 240 threads, and threads 240-255 sit out
   constexpr int kRowsPerPass = kThreads / DH;
-  constexpr int kAcc = kQT / kRowsPerPass;
+  constexpr int kAcc = (kQT + kRowsPerPass - 1) / kRowsPerPass;
   const int d_own = tid % DH;
   const int r_own = tid / DH;
+  const bool pv_thread = r_own < kRowsPerPass;
   float acc[kAcc];
 #pragma unroll
   for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
@@ -185,6 +194,7 @@ paged_attn_kernel(const float* __restrict__ q, const float* __restrict__ kpool,
 #pragma unroll
     for (int j = 0; j < kAcc; ++j) {
       const int qi = r_own + j * kRowsPerPass;
+      if (!pv_thread || qi >= kQT) continue;
       const float* pr = s_s + qi * page;
       float a = acc[j] * c_s[qi];
       for (int p = 0; p < page; ++p) a = fmaf(pr[p], v_s[p * DH + d_own], a);
@@ -196,7 +206,7 @@ paged_attn_kernel(const float* __restrict__ q, const float* __restrict__ kpool,
 #pragma unroll
   for (int j = 0; j < kAcc; ++j) {
     const int qi = r_own + j * kRowsPerPass, rr = row0 + qi;
-    if (rr < rows) {
+    if (pv_thread && qi < kQT && rr < rows) {
       const int sq = rr / rep, h = kvh * rep + rr % rep;
       out[(((size_t)gb * Sq + sq) * H + h) * DH + d_own] =
           acc[j] / fmaxf(l_s[qi], 1e-30f);
@@ -233,6 +243,9 @@ int launch_f32_dh(int dh, const void* q, const void* k, const void* v,
   switch (dh) {
     case 64:
       return launch_f32<64>(q, k, v, bt, lens, qoff, out, G, B, Sq, H, K,
+                            pages, page, maxp, g_stride, window, s);
+    case 80:
+      return launch_f32<80>(q, k, v, bt, lens, qoff, out, G, B, Sq, H, K,
                             pages, page, maxp, g_stride, window, s);
     case 128:
       return launch_f32<128>(q, k, v, bt, lens, qoff, out, G, B, Sq, H, K,
@@ -293,6 +306,12 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
 __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
@@ -316,11 +335,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// byte offset of 16-byte chunk c of K/V tile row r: chunks XOR-swizzled by
-// r % 8 so that ldmatrix's eight row addresses hit eight bank groups
+// byte offset of 16-byte chunk c of K/V tile row r, so that ldmatrix's
+// eight row addresses (eight consecutive rows, one chunk) hit the eight
+// 16-byte bank groups. Rows of 8k chunks (dh 64, 128): the chunk XOR r % 8.
+// Rows of 10 chunks (dh 80, 160 bytes): row r starts 2r groups along, so
+// rows r and r + 4 would meet; flipping the chunk's low bit on rows 4-7
+// moves those to the odd groups, and c ^ 1 stays inside the row.
 template <int DH>
 __device__ __forceinline__ uint32_t kv_off(int r, int c) {
-  return (uint32_t)(r * DH * 2 + ((c ^ (r & 7)) << 4));
+  static_assert(DH % 128 == 0 || DH == 64 || DH == 80, "kv_off: head dim");
+  if constexpr (DH == 80)
+    return (uint32_t)(r * DH * 2 + ((c ^ ((r >> 2) & 1)) << 4));
+  else
+    return (uint32_t)(r * DH * 2 + ((c ^ (r & 7)) << 4));
 }
 
 // Block = (split, KV head x row tile, rank x batch row), 4 warps. Warp w
@@ -424,13 +451,15 @@ paged_attn_split_kernel(const SplitParams p) {
     constexpr int LT = kOwn ? 32 : kSThreads;    // loading threads
     constexpr int LR = kOwn ? NP : kKvTile;      // rows they load
     const int lt = kOwn ? lane : tid, lr0 = kOwn ? ks * NP : 0;
+    // the LR x CPR chunks of the rows, LT at a time (a thread's chunk
+    // column changes between passes when CPR does not divide LT: dh 80)
+    static_assert((LR * CPR) % LT == 0, "load_tile: whole passes");
     auto load_tile = [&](int t0, int stage) {
-      constexpr int RPI = LT / CPR;              // rows per pass
-      const int c = lt % CPR;
       const uint32_t kdst = ring + stage * 2 * TILE_B;
 #pragma unroll
-      for (int j = 0; j < LR / RPI; ++j) {
-        const int r = lr0 + lt / CPR + j * RPI, pos = t0 + r;
+      for (int j = 0; j < LR * CPR / LT; ++j) {
+        const int idx = lt + j * LT, c = idx % CPR;
+        const int r = lr0 + idx / CPR, pos = t0 + r;
         const __nv_bfloat16* ks_ = kb;
         const __nv_bfloat16* vs_ = vb;
         int nbytes = 0;
@@ -477,9 +506,14 @@ paged_attn_split_kernel(const SplitParams p) {
         for (int kk = 0; kk < DH / 16; kk += 2) {
           uint32_t b[4];
           const int r = w0 + nt * 8 + lane % 8;
-          ldsm_x4(kt + kv_off<DH>(r, 2 * kk + lane / 8), b);
-          mma16816(s[nt], qf[kk], b[0], b[1]);
-          mma16816(s[nt], qf[kk + 1], b[2], b[3]);
+          if (kk + 1 < DH / 16) {
+            ldsm_x4(kt + kv_off<DH>(r, 2 * kk + lane / 8), b);
+            mma16816(s[nt], qf[kk], b[0], b[1]);
+            mma16816(s[nt], qf[kk + 1], b[2], b[3]);
+          } else {   // an odd last k-step (dh 80): its two chunks only
+            ldsm_x2(kt + kv_off<DH>(r, 2 * kk + (lane / 8) % 2), b);
+            mma16816(s[nt], qf[kk], b[0], b[1]);
+          }
         }
       }
       // masks and the online softmax (base 2), rows lo and hi
@@ -694,6 +728,9 @@ int launch_bf16(int dh, const SplitParams& p, int G, cudaStream_t s) {
     case 6416: return launch_split<64, 4>(p, G, s);
     case 6432: return launch_split<64, 2>(p, G, s);
     case 6464: return launch_split<64, 1>(p, G, s);
+    case 8016: return launch_split<80, 4>(p, G, s);
+    case 8032: return launch_split<80, 2>(p, G, s);
+    case 8064: return launch_split<80, 1>(p, G, s);
     case 12816: return launch_split<128, 4>(p, G, s);
     case 12832: return launch_split<128, 2>(p, G, s);
     case 12864: return launch_split<128, 1>(p, G, s);

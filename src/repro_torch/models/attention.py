@@ -4,7 +4,7 @@
 Global math only. `attn_forward` handles the reference forward and chunked
 prefill (fresh K/V, optionally returned for a cache fill). repro's
 `attn_decode` has no caller on its serve path and is not ported (ROADMAP
-A1): the port's serve step attends through the paged-attention kernel.
+A6): the port's serve steps attend through the paged-attention kernel.
 """
 from __future__ import annotations
 

@@ -43,9 +43,8 @@ class ModelConfig:
     mlp_type: str = "swiglu"         # "swiglu" | "gelu"
     norm_type: str = "rmsnorm"       # "rmsnorm" | "layernorm"
     logit_softcap: float = 0.0
-    # --- SSM (Mamba2), hybrid, encoder-decoder, vlm: carried so that every
-    # config's parameter count is shape arithmetic here; their models are
-    # not ported (ROADMAP A12) ---
+    # --- SSM (Mamba2), hybrid, encoder-decoder, vlm (the VLM prefix is
+    # not ported yet, ROADMAP A6; its field keeps the count exact) ---
     ssm_state: int = 0
     ssm_expand: int = 2
     ssm_head_dim: int = 64

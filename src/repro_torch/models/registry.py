@@ -1,12 +1,13 @@
 """Model dispatch by family: init / forward / loss / analytic parameter
-counts (port of repro/models/registry.py; the dense and moe families).
+counts (port of repro/models/registry.py).
 
-`init_params` builds `repro`'s global param tree (transformer.init_lm) with
-the same shapes, dtypes and fan-in scales, drawn on the target device from
-a seeded `torch.Generator`. The draws are not `jax.random`'s, so weights
-that must equal `repro`'s come across through `repro_torch.bridge`
-instead. The SSM, hybrid, encoder-decoder and VLM families are not ported
-(ROADMAP A12) and raise; the parameter counts cover every family, since
+`init_params` builds `repro`'s global param tree for the family (the
+transformer's `init_lm` for dense and moe, `init_ssm_lm`, `init_hybrid`,
+`init_encdec`) with the same shapes, dtypes and fan-in scales, drawn on the
+target device from a seeded `torch.Generator`. The draws are not
+`jax.random`'s, so weights that must equal `repro`'s come across through
+`repro_torch.bridge` instead. The VLM family waits for its patch prefix
+(ROADMAP A6) and raises; the parameter counts cover every family, since
 they are shape arithmetic.
 """
 from __future__ import annotations
@@ -15,32 +16,43 @@ import torch
 
 from repro_torch.kernels.dispatch import require_device
 from repro_torch.models.common import ModelConfig, cross_entropy
+from repro_torch.models.encdec import encdec_forward, init_encdec
+from repro_torch.models.hybrid import hybrid_forward, init_hybrid
 from repro_torch.models.moe import ExpertLayout
+from repro_torch.models.ssm_lm import init_ssm_lm, ssm_lm_forward
 from repro_torch.models.transformer import init_lm, lm_forward
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+_INIT = {"ssm": init_ssm_lm, "hybrid": init_hybrid, "encdec": init_encdec}
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP A12); the "
+            f"family {cfg.family!r} is not ported yet (ROADMAP A6); the "
             f"port runs {PORTED_FAMILIES}")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device="cuda") -> dict:
-    """Global-layout params of a dense or moe model, on `device`."""
+    """Global-layout params of a model of a ported family, on `device`."""
     _check_family(cfg)
     dev = require_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return init_lm(cfg, gen, device=dev)
+    return _INIT.get(cfg.family, init_lm)(cfg, gen, device=dev)
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             lay: ExpertLayout | None = None) -> torch.Tensor:
-    """batch: tokens (B,S) -> logits (B,S,V)."""
+    """batch: tokens (B,S) [+ frames (B,T,D) for encdec] -> logits
+    (B,S,V)."""
     _check_family(cfg)
+    if cfg.family == "encdec":
+        return encdec_forward(cfg, params, batch["tokens"], batch["frames"])
+    if cfg.family == "ssm":
+        return ssm_lm_forward(cfg, params, batch["tokens"])
+    if cfg.family == "hybrid":
+        return hybrid_forward(cfg, params, batch["tokens"])
     return lm_forward(cfg, params, batch["tokens"], lay=lay)
 
 

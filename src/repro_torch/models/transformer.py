@@ -6,7 +6,7 @@ serve step (tests/test_torch_dense.py, `chip_smoke.py`'s reference and
 dense phases). It is plain torch — `flash_attention` and `moe_ffn_global`
 — and calls none of the kernels the serve step runs. A loop over layers
 stands in for repro's `lax.scan`; there is no remat (no training here) and
-no prefix embeddings (the VLM prefix is not ported, ROADMAP A1).
+no prefix embeddings (the VLM prefix is not ported, ROADMAP A6).
 """
 from __future__ import annotations
 

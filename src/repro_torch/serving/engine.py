@@ -66,6 +66,9 @@ from repro_torch.serving.qos import QosPolicy, slo_targets
 from repro_torch.serving.request import Request
 from repro_torch.serving.scheduler import Scheduler
 
+#: families the engine serves (the transformer step of serving/steps.py)
+ENGINE_FAMILIES = ("dense", "moe")
+
 
 @dataclass
 class EngineConfig:
@@ -152,6 +155,12 @@ class MoebiusEngine:
                  params_global: dict | None = None,
                  ecfg: EngineConfig | None = None, *, device="cuda"):
         self.device = require_device(device)
+        if cfg.family not in ENGINE_FAMILIES:
+            # repro's engine serves these families neither: their steps
+            # are serving/steps_extra.py's, driven by the caller
+            raise NotImplementedError(
+                f"the engine serves the families {ENGINE_FAMILIES}, not "
+                f"family {cfg.family!r} (see serving/steps_extra.py)")
         self.cfg, self.cc = cfg, cc
         self.ecfg = ecfg or EngineConfig()
         self.Dd, self.G = mesh

@@ -57,10 +57,12 @@ class CacheConfig:
 
 
 def num_kv_layers(cfg: ModelConfig) -> int:
-    """Attention sites that carry paged KV (every layer of this slice's
-    families)."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    """Attention sites that carry paged KV: none for an SSM, one per shared
+    attention site for a hybrid, every (decoder) layer otherwise."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
     return cfg.num_layers
 
 

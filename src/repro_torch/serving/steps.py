@@ -100,10 +100,18 @@ def _squeeze_pack(cfg, spec: LayoutSpec, pack: dict) -> dict:
 # Per-rank building blocks (stacked ranks)
 # ---------------------------------------------------------------------------
 
+#: families whose reference forward scales the embedding by sqrt(d_model)
+#: (the transformer's lm_forward); ssm_lm, hybrid and encdec do not
+SCALED_EMBED_FAMILIES = ("dense", "moe", "vlm")
+
+
 def _embed_scale(cfg) -> float:
     """sqrt(d_model) rounded to the compute dtype, as a host float: the
     product is the same as with repro's 0-d array, and no host value has to
-    reach the card inside a captured step."""
+    reach the card inside a captured step. 1.0 (an exact product, as
+    repro's ones) for the families that do not scale."""
+    if cfg.family not in SCALED_EMBED_FAMILIES:
+        return 1.0
     return float(torch.tensor(float(cfg.d_model)).sqrt()
                  .to(cfg.compute_dtype))
 
@@ -140,7 +148,8 @@ def _per_rank(w: torch.Tensor, ndim: int) -> torch.Tensor:
 def _project_heads(cfg, ap, x, cos, sin):
     """x (G, bs, S, D) -> q (G,bs,S,hl,dh), k/v (G,bs,S,kl,dh) with rope and
     qk-norm. ap: one layer's attention weights, rank-major (G, ...) under
-    TP or replicated under EP (both broadcast in the matmul)."""
+    TP or replicated under EP (both broadcast in the matmul). cos = None:
+    no RoPE (the encoder-decoder's decoder, ROADMAP C20)."""
     G, bs, S, D = x.shape
     dh = cfg.dh
     xf = x.reshape(G, bs * S, D)
@@ -150,6 +159,8 @@ def _project_heads(cfg, ap, x, cos, sin):
     if cfg.qk_norm:
         q = rmsnorm(q, _per_rank(ap["q_norm"], q.dim()))
         k = rmsnorm(k, _per_rank(ap["k_norm"], k.dim()))
+    if cos is None:
+        return q, k, v
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 

@@ -775,3 +775,91 @@ def test_lm_forward_on_card_matches_cpu(card, family):
     assert sum(dispatch.COUNTS.values()) == 0       # no kernel in the oracle
     torch.testing.assert_close(got, lm_forward(cfg, params, toks),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", ["zamba2", "whisper"])
+def test_paged_attention_family_shapes(card, dtype, tol, shape):
+    """#1 at the hybrid's shape (32/32 heads of 80, decode rows) and the
+    encoder-decoder's (8/8 heads of 64, prefill chunks of 16 mixed with
+    decode rows), both paths, against the plain version."""
+    rng = np.random.default_rng(80 if shape == "zamba2" else 16)
+    H, K, dh, Sq = (32, 32, 80, 1) if shape == "zamba2" else (8, 8, 64, 16)
+    G, B, page, maxp = 2, 4, 16, 24
+    pages = G * B * maxp + 1
+    q = torch.from_numpy(rng.standard_normal((G, B, Sq, H, dh)))
+    kp = torch.from_numpy(rng.standard_normal((G, pages, page, K, dh)))
+    vp = torch.from_numpy(rng.standard_normal((G, pages, page, K, dh)))
+    q, kp, vp = (t.to(dtype) for t in (q, kp, vp))
+    bt = torch.from_numpy(rng.permutation(pages - 1)[:G * B * maxp]
+                          .reshape(G, B, maxp) + 1).int()
+    kv = torch.from_numpy(rng.integers(Sq, maxp * page + 1, (G, B))).int()
+    qo = kv - Sq
+    if Sq > 1:                  # decode rows: one valid query each
+        qo[:, 1] = kv[:, 1] - 1
+    args = (q, kp, vp, bt, kv)
+    ref = paged_attention(*args, q_offset=qo, window=0)
+    dispatch.reset_counts()
+    out = paged_attention(*(a.to(card) for a in args), q_offset=qo.to(card),
+                          window=0)
+    torch.cuda.synchronize()
+    assert dispatch.calls("paged_attention") == 1
+    torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-2.7b",
+                                  "whisper-base"])
+def test_family_step_on_card_matches_cpu(card, name):
+    """A small f32 model of each family: the serve step on the card
+    (kernels) and on the CPU (plain versions) give the same greedy tokens
+    and logits within 1e-4, in tp and ep."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.layouts import pack_params
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import steps_extra as sx
+    from repro_torch.serving.kvcache import CacheConfig
+    kw = dict(num_heads=4, num_kv_heads=4, head_dim=64) \
+        if name != "mamba2-780m" else {}
+    cfg = get_config(name).reduced(**kw)
+    cc = CacheConfig(page_size=16, pages_ep=8, max_pages_per_req=2)
+    params = init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, cfg.vocab_size, (1, 2, 1)).astype(np.int32)
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, max(cfg.encoder_seq, 1), cfg.d_model)).astype(np.float32))
+    for layout in ("tp", "ep"):
+        outs = {}
+        for dev in ("cpu", card):
+            p = pack_params(cfg, _tree_to(params, dev), layout, 2)
+            T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+            vl, pos = np.ones((1, 2), np.int32), np.zeros((1, 2), np.int32)
+            bt = np.array([[[1, 2], [3, 4]]], np.int32)
+            if cfg.family == "ssm":
+                st = sx.ssm_states(cfg, 1, 2, device=dev)
+                step = sx.build_ssm_serve_step(cfg, (1, 2), layout, 2,
+                                               return_logits=True, device=dev)
+                res = step(sx.ssm_decode_pack(cfg, p, layout, 2),
+                           *st.values(), T(toks), T(vl))
+            elif cfg.family == "hybrid":
+                st = sx.ssm_states(cfg, 1, 2, device=dev)
+                kv = torch.zeros((1, 2, cc.nelems(cfg, 2)), device=dev)
+                step = sx.build_hybrid_serve_step(cfg, (1, 2), layout, cc, 2,
+                                                  return_logits=True,
+                                                  device=dev)
+                res = step(sx.hybrid_decode_pack(cfg, p, layout, 2), kv,
+                           *st.values(), T(toks), T(pos), T(vl), T(bt))
+            else:
+                xkv = sx.encdec_cross_cache(cfg, _tree_to(params, dev),
+                                            frames.to(dev), layout, 2)
+                kv = torch.zeros((1, 2, cc.nelems(cfg, 2)), device=dev)
+                step = sx.build_encdec_serve_step(
+                    cfg, (1, 2), layout, cc, 2, cfg.encoder_seq,
+                    return_logits=True, device=dev)
+                res = step(sx.encdec_decode_pack(cfg, p, layout, 2), kv,
+                           xkv[None], T(toks), T(pos), T(vl), T(bt))
+            outs[str(dev)] = (res[0].cpu(), res[-1].cpu())
+        (t0, l0), (t1, l1) = outs.values()
+        assert torch.equal(t0, t1)
+        torch.testing.assert_close(l1, l0, rtol=1e-4, atol=1e-4)

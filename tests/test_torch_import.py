@@ -25,7 +25,12 @@ def test_port_imports_no_jax_or_repro():
         "for m in ('repro_torch.serving.qos', 'repro_torch.serving.faults',\n"
         "          'repro_torch.configs.qwen2_moe_a2_7b',\n"
         "          'repro_torch.serving.frontend', 'repro_torch.launch.serve',\n"
-        "          'repro_torch.launch.http'):\n"
+        "          'repro_torch.launch.http', 'repro_torch.serving.steps_extra',\n"
+        "          'repro_torch.models.ssm', 'repro_torch.models.ssm_lm',\n"
+        "          'repro_torch.models.hybrid', 'repro_torch.models.encdec',\n"
+        "          'repro_torch.configs.mamba2_780m',\n"
+        "          'repro_torch.configs.zamba2_2_7b',\n"
+        "          'repro_torch.configs.whisper_base'):\n"
         "    assert m in sys.modules, m\n"
         "n = sum(1 for m in sys.modules if m.startswith('repro_torch.'))\n"
         "print('ok', n)\n")
@@ -86,6 +91,31 @@ def test_entry_points_raise_without_card(monkeypatch):
         params_from_jax({"w": [1.0]})
     # the CPU runs only when asked for
     assert init_params(cfg, device="cpu")["embed"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("fn", ["build_ssm_serve_step",
+                                "build_hybrid_serve_step",
+                                "build_encdec_serve_step", "ssm_states"])
+def test_family_steps_default_to_cuda(fn, monkeypatch):
+    """The SSM, hybrid and encoder-decoder steps (and the SSM states) run
+    on the card unless the caller asks for the CPU; without a card they
+    raise."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import steps_extra
+    from repro_torch.serving.kvcache import CacheConfig
+    f = getattr(steps_extra, fn)
+    assert inspect.signature(f).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cc = CacheConfig(page_size=4, pages_ep=8, max_pages_per_req=4)
+    args = {"build_ssm_serve_step": ("mamba2-780m", ((1, 2), "tp", 2)),
+            "build_hybrid_serve_step": ("zamba2-2.7b", ((1, 2), "tp", cc, 2)),
+            "build_encdec_serve_step": ("whisper-base",
+                                        ((1, 2), "ep", cc, 2, 16)),
+            "ssm_states": ("mamba2-780m", (1, 2))}[fn]
+    cfg = get_config(args[0]).reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        f(cfg, *args[1])
+    f(cfg, *args[1], device="cpu")
 
 
 def test_launcher_defaults_to_cuda(monkeypatch):

@@ -10,6 +10,7 @@ The CUDA kernels themselves run only on the card (chip_smoke.py).
 """
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 try:
@@ -61,6 +62,36 @@ def test_paged_attention_plain_matches_repro(B, Sq, HK, page, maxp, window,
                         window=window)
     assert dispatch.calls("paged_attention") == 0     # CPU: no launch
     assert p.shape == q.shape and p.dtype == torch.float32
+    np.testing.assert_allclose(p.numpy(), np.asarray(r), **TOL)
+    np.testing.assert_allclose(p.numpy(), np.asarray(i), **TOL)
+
+
+@pytest.mark.parametrize("case", [
+    # zamba2-2.7b's shared attention: 32/32 heads of 80, decode rows
+    dict(B=2, Sq=1, H=32, K=32, dh=80, page=4, maxp=5),
+    # whisper-base's decoder: 8/8 heads of 64, prefill chunks of 16 rows
+    # mixed with decode rows (a row's valid positions end at its kv_len)
+    dict(B=3, Sq=16, H=8, K=8, dh=64, page=4, maxp=8, mixed=True),
+])
+def test_paged_attention_plain_matches_repro_at_family_shapes(case):
+    """The plain version at the hybrid's and the encoder-decoder's shapes
+    (group 1; dh 80; Sq 16 with decode rows) against repro's oracle and
+    its Pallas kernel in interpret mode."""
+    c = dict(case)
+    mixed = c.pop("mixed", False)
+    rng = np.random.default_rng(c["dh"] + c["Sq"])
+    q, kp, vp, bt, kv_lens, q_off = _attn_inputs(rng, **c)
+    if mixed:       # row 1 a decode row: one valid query; its tail rows
+        q_off[1] = 9            # see the same 10 positions (and are dropped
+        kv_lens[1] = 10         # by the step)
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, bt, kv_lens)]
+    r = j_attn(*jargs, q_offset=jnp.asarray(q_off), window=0,
+               page_chunk=2, backend="ref")
+    i = j_attn(*jargs, q_offset=jnp.asarray(q_off), window=0,
+               page_chunk=2, backend="interpret")
+    p = paged_attention(*[torch.from_numpy(a) for a in
+                          (q, kp, vp, bt, kv_lens)],
+                        q_offset=torch.from_numpy(q_off), window=0)
     np.testing.assert_allclose(p.numpy(), np.asarray(r), **TOL)
     np.testing.assert_allclose(p.numpy(), np.asarray(i), **TOL)
 
