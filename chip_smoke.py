@@ -179,7 +179,8 @@ Phases (any failure exits non-zero):
                with tp, ep and tpep resident: static on each and every
                ordered pair switched live give the never-switched tokens,
                fused 8 == single steps in tpep, card == CPU in tpep. Then
-               qwen3-235b-a22b (4 layers, bf16) at mesh (2, 2), tpep's
+               qwen3-235b-a22b (2 layers, LAUNCH_LAYERS: the script's
+               time; bf16) at mesh (2, 2), tpep's
                experts over all 4 ranks, `EngineConfig()` with graphs and
                the fused loop of 8: static tpep, then from tp through
                monolithic tp->tpep, tpep->ep and ep->tpep switches (the
@@ -206,6 +207,37 @@ Phases (any failure exits non-zero):
                Prints tok/s, ms a dispatch, the state and pool bytes, #1's
                launches and the peak memory. The kernels phase holds #1 at
                these models' shapes (dh 80; Sq 16 with decode rows).
+ 16. vlm   — the VLM family: a small f32 model with heads of 256 over one
+               KV head card vs CPU, then paligemma-3b whole (18 layers,
+               8 query heads of 256 over ONE KV head, 2.43 B parameters,
+               bf16), seeded `init_params` on the card, mesh (1, 2),
+               `EngineConfig()` with the fused loop of 8 from graphs,
+               served as its text decoder (as repro's engine serves it):
+               the serve phase's 8 requests in tp (the KV head replicated
+               on both ranks, kv_rep 2), in ep, and through a monolithic
+               tp->ep and a 4-chunk ep->tp switch (K/V byte-exact, 0
+               captures after warmup), tokens held to fp32 `lm_forward` as
+               in phase 12, #4/#5 at the staging shapes; then
+               `lm_forward` with a seeded stub patch prefix (256 x 2048),
+               bf16 against fp32 at the last position. Prints tok/s, ms a
+               token against the decode bound, each switch, the KV pool
+               with kv_rep, the peak. The kernels phase holds #1 at this
+               model's decode shapes (dh 256, groups of 8 and 4: row 1c).
+ 17. train — the training path (plain autograd through `lm_forward`; no
+               kernel, as repro's training reaches none): paligemma-3b
+               whole with a stub patch prefix in tp, and qwen2-moe-a2.7b at
+               full width, 4 of its 24 layers, in tp and ep; bf16,
+               MarkovData, batch 8 x seq 64, 20 steps, remat on. The loss
+               falls by more than 3 sigma of its spread over batches;
+               step 0 in bf16 against fp32 on the same weights (loss and
+               grad-norm relative error, per-leaf grad cosine, routing
+               differences); tp == ep in fp32 on the same canonical
+               weights; the tp run's async checkpoint restores byte-exact
+               in tp and equal to the direct pack in ep; and
+               `python -m repro_torch.launch.train` (paligemma-3b reduced,
+               in this process) stopped at step 6 and `--resume`d equals
+               the unbroken run. Prints ms a step, tokens/s, the 6 N
+               tokens bound and the peak.
 
 `python3 chip_smoke.py --only reference,dense` runs the named phases alone
 (after the build) and prints no kernels line and no result line.
@@ -478,8 +510,16 @@ def phase_kernels(results: dict) -> None:
                                kv_hi=416)),
         ("whisper_mixed", dict(G=2, B=4, Sq=16, H=8, K=8, dh=64, kv_lo=16,
                                kv_hi=96, decode_rows=True)),
+        # paligemma-3b's MQA decode (phase vlm), head dim 256 over one KV
+        # head: ep's 8 query heads per KV head (2 x 4 rows), tp's 4 a rank
+        # (the one KV head replicated on both ranks, 8 rows each)
+        ("paligemma_ep_decode", dict(G=2, B=4, Sq=1, H=8, K=1, dh=256,
+                                     kv_lo=64, kv_hi=416)),
+        ("paligemma_tp_decode", dict(G=2, B=8, Sq=1, H=4, K=1, dh=256,
+                                     kv_lo=64, kv_hi=416)),
     ]
-    split_cases = ("zamba2_decode", "whisper_mixed")
+    split_cases = ("zamba2_decode", "whisper_mixed", "paligemma_ep_decode",
+                   "paligemma_tp_decode")
     worst = 0.0
     row = None
     for name, kw in att_cases:
@@ -527,7 +567,11 @@ def phase_kernels(results: dict) -> None:
                                     f"would pass a {what} ({e_mut})")
         worst = max(worst, e_abs)
         ms = cuda_ms(lambda: paged_attention_cuda(*args, window=a["window"]))
-        plain_ms = cuda_ms(lambda: attention_plain(a), iters=20, warmup=1)
+        # the plain version of ep_decode_long takes ~0.2 s a call: fewer
+        # calls time it (the script's time)
+        long = name == "ep_decode_long"
+        plain_ms = cuda_ms(lambda: attention_plain(a), iters=3 if long else 20,
+                           warmup=1, reps=3 if long else 5)
         qd, kd, vd, mask = sdpa_inputs(a)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask))
@@ -4332,6 +4376,8 @@ LAUNCH_PAIRS = [(a, b) for a in LAUNCH_LAYOUTS for b in LAUNCH_LAYOUTS
                 if a != b]
 LAUNCH_SWITCHES = {3: "tpep", 6: "ep", 9: "tpep"}   # from tp, monolithic
 LAUNCH_SCALE = 0.02         # bursty trace scale of the launcher run
+LAUNCH_LAYERS = 2           # of qwen3-235b's 94 in the tpep serve: the
+                            # serve model's 4 cut (the script's time)
 LAUNCH_TIMEOUT = 300        # seconds for the launcher subprocess
 
 
@@ -4527,7 +4573,8 @@ def http_batch_check(eng, prompts: list, what: str) -> None:
 
 
 def launch_serve(results: dict) -> None:
-    """(b) qwen3-235b-a22b at full width, 4 of its 94 layers, bf16, at mesh
+    """(b) qwen3-235b-a22b at full width, LAUNCH_LAYERS (2) of its 94 layers
+    (the serve model's 4 cut for the script's time), bf16, at mesh
     (2, 2): 4 stacked ranks, so tpep's expert group holds 32 of the 128
     experts a rank. `EngineConfig()` with tp, ep and tpep resident, graphs
     and the fused loop of 8. The serve phase's 8 requests statically in
@@ -4549,6 +4596,7 @@ def launch_serve(results: dict) -> None:
     from repro_torch.serving.request import Request
 
     cfg, cc = serve_model()
+    cfg = cfg.replace(num_layers=LAUNCH_LAYERS)
     Dd, G = LAUNCH_MESH
     L, E, N = cfg.num_layers, cfg.num_experts, 8
     prompts = serve_prompts(cfg)
@@ -5337,6 +5385,744 @@ def card_line() -> str:
             else f"nvidia-smi failed: {smi.stderr.strip()}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the VLM family whole (paligemma-3b): MQA, one KV head over G = 2
+# ---------------------------------------------------------------------------
+
+VLM_CHUNK_LAYERS = 5        # ep->tp in 4 chunks (5, 5, 5, 3) of the 18 layers
+VLM_MONO_AT = 4             # tp->ep monolithic, prefills in flight
+VLM_CHUNKED_AT = 10         # ep->tp chunked, decode between the chunks
+
+
+def vlm_model():
+    """paligemma-3b whole: 18 layers, d_model 2048, 8 query heads of 256
+    over ONE KV head (MQA), GELU d_ff 16384, vocab 257216; bf16 (~4.9 GB,
+    lm_head untied)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.kvcache import CacheConfig
+    return (get_config("paligemma-3b"),
+            CacheConfig(page_size=16, pages_ep=256, max_pages_per_req=32))
+
+
+def vlm_parity_model():
+    """A small f32 VLM with paligemma-3b's head dim and its one KV head."""
+    from repro_torch.configs import get_config
+    return get_config("paligemma-3b").reduced(
+        num_layers=2, d_model=128, num_heads=4, num_kv_heads=1, head_dim=256,
+        d_ff=256, vocab_size=512)
+
+
+def phase_vlm(results: dict) -> None:
+    """(a) A small f32 VLM's prefill on the card and the CPU (heads of 256
+    over one KV head). (b) paligemma-3b whole, bf16, seeded `init_params`
+    on the card, G=2, `EngineConfig()` with the fused loop of 8 and every
+    graph captured at warmup, served as its text decoder (no image prefix
+    on the serve path, as repro's engine serves it): the serve phase's 8
+    requests in tp (the one KV head replicated on both ranks: kv_rep 2),
+    in ep, and through a monolithic tp->ep and a chunked ep->tp switch
+    (K/V byte-exact on request pages, 0 captures after warmup); tokens
+    held to fp32 `lm_forward` as in the dense phase; #4/#5 bit-equal at
+    the staging shapes. (c) `lm_forward` with a seeded stub patch prefix
+    (256 x 2048) in bf16 against fp32 compute on the card."""
+    import torch
+
+    from repro_torch.core.layouts import group_info
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import (count_params_actual,
+                                             count_params_analytic,
+                                             init_params)
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.request import Request
+
+    parity_check(vlm_parity_model(), "vlm parity")
+    cfg, cc = vlm_model()
+    L, G, N = cfg.num_layers, 2, 8
+    gi = group_info(cfg, G)
+    check((gi.kv_local, gi.kv_rep, gi.q_local) == (1, 2, 4),
+          f"vlm: group info {gi}")
+    prompts = serve_prompts(cfg)
+
+    def trace(rid0=0):
+        return [Request(rid=rid0 + i, prompt=list(p), max_new_tokens=32,
+                        arrival_s=0.0) for i, p in enumerate(prompts)]
+
+    t0 = time.time()
+    params = init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_par = count_params_actual(params)
+    check(n_par == count_params_analytic(cfg), f"vlm: {n_par} parameters")
+    w_bytes = tree_bytes([params])
+    # a decode step reads every weight but the embedding table (B rows)
+    dec_bytes = w_bytes - tree_bytes([params["embed"]])
+    print(f"vlm config: {cfg.name} whole, num_layers={L}, d_model="
+          f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+          f"{cfg.dh} (MQA), GELU d_ff={cfg.d_ff}, vocab={cfg.vocab_size}, "
+          f"bf16: {n_par} parameters ({w_bytes} bytes), init_params on the "
+          f"card {time.time() - t0:.2f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = MoebiusEngine(cfg, (1, G), cc, params_global=params,
+                        ecfg=EngineConfig(start_layout="tp",
+                                          prefill_chunk=128, seed=SEED,
+                                          decode_steps=N,
+                                          chunk_layers=VLM_CHUNK_LAYERS,
+                                          policy=static_policy()),
+                        device="cuda")
+    ex = eng.ex
+    eng.warmup()
+    t_build = time.time() - t0
+    rt = ex.rt
+    for key, e in rt.executables.items():
+        check(e.launches.get("paged_attention", 0) > 0
+              and e.launches.get("grouped_matmul", 0) == 0,
+              f"vlm: graph {key} launches {e.launches}")
+    kv_bank = ex._kvs[0].numel() * ex._kvs[0].element_size()
+    caps = {lo: cc.capacity_tokens(cfg, G, lo) for lo in ("tp", "ep")}
+    check(caps == {"ep": G * (cc.pages_ep - 1) * cc.page_size,
+                   "tp": (cc.pages_ep - 1) * cc.page_size},
+          f"vlm: capacities {caps} (kv_rep {gi.kv_rep})")
+    print(f"vlm: engine built and warmed in {t_build:.2f} s: "
+          f"{len(rt.executables)} graphs, each with attention and no expert "
+          f"GEMM; graph pool {rt.pool_bytes() / 2**20:.1f} MiB; KV buffer "
+          f"{kv_bank} bytes ({kv_bank / 2**20:.1f} MiB, {L} layers x 2 x "
+          f"{cc.pages_ep} pages x {cc.page_size} x 1 KV head x {cfg.dh} a "
+          f"rank); kv_rep {gi.kv_rep}: the tp view holds the one KV head "
+          f"on both ranks, {caps['tp']} tokens against ep's {caps['ep']}",
+          flush=True)
+
+    shapes = {"gather": set(), "scatter": set()}
+    undo = record_staging(shapes)
+    kv_bytes_page = (2 * L * cc.page_size * cfg.num_kv_heads * cfg.dh
+                     * cfg.param_dtype.itemsize)
+    rows = ("gather_pages_rows", "scatter_pages_rows")
+    streams, per_layout, switch_log = {}, {}, []
+    dispatch.reset_counts()
+    replays0 = rt.replayed_launches()
+
+    def live_switch(target, chunks):
+        check(len(eng.sched.live()) > 0, f"vlm: nothing live at ->{target}")
+        snap = kv_written(eng)
+        c0 = {k: dispatch.calls(k) for k in rows}
+        eng.ecfg.chunk_layers = chunks
+        check(eng.execute_switch(target), f"vlm: ->{target} aborted")
+        rec = eng.switch_records[-1]
+        grew = {k: dispatch.calls(k) - c0[k] for k in rows}
+        check(all(v > 0 for v in grew.values()),
+              f"vlm: {rec.direction} launched {grew}")
+        n = check_kv_moved(snap, kv_written(eng), f"vlm {rec.direction}")
+        switch_log.append((rec, grew, n))
+
+    try:
+        for layout, rid0, hooks in (
+                ("tp", 0, None), ("ep", 100, None),
+                ("switched", 200, {VLM_MONO_AT: lambda: live_switch("ep", 0),
+                                   VLM_CHUNKED_AT: lambda: live_switch(
+                                       "tp", VLM_CHUNK_LAYERS)})):
+            start = "tp" if layout == "switched" else layout
+            if str(eng.active) != start:
+                eng.ecfg.chunk_layers = 0
+                check(eng.execute_switch(start), f"vlm: idle ->{start}")
+            out, wall, log = timed_serve(eng, trace(rid0), hooks)
+            eng.clear_prefix_cache()
+            streams[layout] = {rid - rid0: t for rid, t in out.items()}
+            toks = sum(map(len, out.values()))
+            check(len(out) == 8 and toks == 256 and all(
+                0 <= t < cfg.vocab_size for v in out.values() for t in v),
+                f"vlm {layout}: {len(out)} requests, {toks} tokens")
+            dec = [ms / N for ms, d, _ in log if d]
+            per_layout[layout] = (toks / wall, sum(dec) / max(1, len(dec)),
+                                  len(dec), len(log))
+    finally:
+        undo()
+    late = rt.late_builds
+    check(late == 0, f"vlm: {late} captures after warmup")
+    n = {k: dispatch.calls(k) for k in ("paged_attention", "grouped_matmul")
+         + rows}
+    replayed = rt.replayed_launches() - replays0
+    check(n["paged_attention"] > 0 and replayed["paged_attention"] > 0
+          and n["grouped_matmul"] == 0
+          and replayed.get("grouped_matmul", 0) == 0,
+          f"vlm: launches {n}, replayed {dict(replayed)}")
+    for k, v in n.items():
+        results["launches"][k] = results["launches"].get(k, 0) + v
+    b_ms = dec_bytes / HBM_BYTES_PER_S * 1e3
+    for layout, (tok_s, dec_ms, n_dec, iters) in per_layout.items():
+        print(f"vlm {layout}: 8 requests, 256 tokens, {iters} iterations "
+              f"-> {tok_s:.2f} tok/s; decode-only {dec_ms:.3f} ms a token "
+              f"(mean of {n_dec} fused iterations of {N}); decode bound "
+              f"{b_ms:.3f} ms ({dec_bytes / 1e9:.3f} GB of weights a step "
+              f"/ 3.35 TB/s): {dec_ms / b_ms:.2f}x it", flush=True)
+    for rec, grew, n_kv in switch_log:
+        nbytes = 2 * (rec.kv_pages + rec.delta_pages) * kv_bytes_page
+        bk_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"vlm switch {rec.direction}: chunks={rec.chunks} "
+              f"pause_s={rec.pause_s:.4f} total_s={rec.total_s:.4f} "
+              f"kv_s={rec.kv_s:.4f} plan_s={rec.plan_s:.4f} "
+              f"kv_pages={rec.kv_pages} delta_pages={rec.delta_pages} "
+              f"live={rec.live_requests}; {nbytes / 1e9:.3f} GB of K/V "
+              f"pages read and written once: bound {bk_ms:.3f} ms, kv_s "
+              f"{rec.kv_s * 1e3 / bk_ms:.2f}x it; row launches {grew}; K/V "
+              f"of {n_kv} live requests byte-exact", flush=True)
+    check([r.direction for r, _, _ in switch_log] == ["tp_to_ep", "ep_to_tp"]
+          and switch_log[1][0].chunks == -(-L // VLM_CHUNK_LAYERS),
+          f"vlm: switches {[(r.direction, r.chunks) for r, _, _ in switch_log]}")
+    print(f"vlm: launches on the path {n}; graph replays {dict(replayed)}; "
+          f"0 captures after warmup", flush=True)
+    memory_line("vlm serve")
+
+    firsts = {"tp": engine_first_logits(eng, trace(), streams["tp"])}
+
+    def to_ep():
+        eng.ecfg.chunk_layers = 0
+        check(eng.execute_switch("ep"), "vlm: the idle tp->ep switch")
+
+    t0 = time.time()
+    margins = stream_margins(eng, trace(), streams, to_ep)
+    firsts["ep"] = engine_first_logits(eng, trace(), streams["ep"])
+    print(f"vlm: margins teacher-forced through the engine in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    del eng, ex, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref, ref_first = reference_logits(cfg, params, trace(), streams, "vlm")
+    bf16_err, _, _ = bf16_baseline(cfg, params, trace(), "vlm")
+    report_reference("vlm", cfg, streams, ref, margins, firsts, ref_first,
+                     bf16_err)
+
+    # the forward with its image prefix: a seeded stub of 256 patch
+    # embeddings before the longest prompt, bf16 against fp32 compute
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    patches = torch.randn((1, cfg.num_patches, cfg.d_model), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    seq = torch.tensor([max(prompts, key=len)], device="cuda")
+    lg = {}
+    with torch.inference_mode():
+        for dt in (torch.float32, torch.bfloat16):
+            out = lm_forward(cfg.replace(compute_dtype=dt), params, seq,
+                             prefix_embeds=patches)
+            check(out.shape == (1, seq.shape[1], cfg.vocab_size),
+                  f"vlm: prefix logits {tuple(out.shape)}")
+            lg[dt] = out[0, -1].float()
+            check(bool(torch.isfinite(lg[dt]).all()),
+                  "vlm: non-finite prefix logits")
+        bare = lm_forward(cfg.replace(compute_dtype=torch.float32), params,
+                          seq)[0, -1].float()
+    e_pre = float((lg[torch.bfloat16] - lg[torch.float32]).abs().max()
+                  / lg[torch.float32].abs().max())
+    moved = float((bare - lg[torch.float32]).abs().max()
+                  / lg[torch.float32].abs().max())
+    print(f"vlm: lm_forward with a stub patch prefix ({cfg.num_patches} x "
+          f"{cfg.d_model}) before a {seq.shape[1]}-token prompt: bf16 "
+          f"against fp32 compute at the last position max |d| / max "
+          f"|logit| = {e_pre:.4e} (tolerance {LOGIT_TOL}); the prefix "
+          f"moves the fp32 logits by {moved:.4e}", flush=True)
+    check(e_pre <= LOGIT_TOL, f"vlm: prefix logit error {e_pre}")
+    check(moved > LOGIT_TOL, f"vlm: the prefix moved the logits {moved}")
+    del params, lg, bare, patches
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_shapes = rows_kernels_at(shapes, "vlm")
+    check(n_shapes > 0, "vlm: no staging shape recorded")
+    print(f"vlm: gather_pages_rows / scatter_pages_rows bit-equal to their "
+          f"plain versions at the switches' {n_shapes} staging shapes",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the training path (train_loop, AdamW, checkpoints, launch/train)
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 20
+TRAIN_BATCH, TRAIN_SEQ = 8, 64
+TRAIN_LR = 1e-3
+TRAIN_MOE_LAYERS = 4        # of qwen2-moe-a2.7b's 24: AdamW holds 12 B a
+                            # parameter (bf16 weights and grads, fp32 m, v)
+TRAIN_CKPT_AT = 10          # the async checkpoint of the tp run
+TRAIN_DIR = REPO / "build" / "chip_smoke_train"   # gitignored
+
+
+def train_batch(cfg, i: int, patches):
+    from repro_torch.training.data import MarkovData
+    b = MarkovData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=7).batch_at(i)
+    if cfg.family == "vlm":
+        b = dict(b, patches=patches)
+    return b
+
+
+def loss_and_grads(cfg, params, batch, lay):
+    """The train step's loss and gradients (registry.loss_fn, remat on)
+    on `params` in their dtype, with `cfg`'s compute dtype; with the MoE
+    routing of every layer recorded (top-k ids per token). The caller's
+    tensors are not touched."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.registry import loss_fn
+    from repro_torch.training.optimizer import leaves, tree_map
+    inner, seen = moe.route, []
+
+    def route(c, w, x):
+        out = inner(c, w, x)
+        seen.append(out[1].detach())
+        return out
+
+    moe.route = route
+    try:
+        ps = [p.detach().requires_grad_(True) for p in leaves(params)]
+        it = iter(ps)
+        b = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+        loss = loss_fn(cfg, tree_map(lambda _: next(it), params), b,
+                       lay=lay, remat=True)
+        gs = torch.autograd.grad(loss, ps)
+    finally:
+        moe.route = inner
+    it = iter(gs)
+    # the forward's routes; the remat recompute routes every layer again
+    return (float(loss.detach()), tree_map(lambda _: next(it), params),
+            seen[:cfg.num_layers])
+
+
+# step 0 of the bf16 train step against fp32 on the same weights: each
+# bound lies between the sound steps' readings (loss 5.0e-5, grad norm
+# 8.1e-4, cosine 0.99988 vlm / 0.98545 moe at worst) and those of the
+# planted faults that must be caught (loss 9.2e-4 at least): PERF.md, PR 23
+TRAIN_LOSS_REL, TRAIN_GNORM_REL = 2e-4, 2e-3
+TRAIN_COS_MIN = {"vlm": 0.999, "moe": 0.98}
+
+
+def _rmsnorm_no_upcast(x, weight, eps=1e-6):
+    import torch
+    return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True)
+                           + eps) * weight
+
+
+def _cross_entropy_no_upcast(logits, labels, softcap=0.0):
+    import torch
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - tgt).float()
+
+
+def planted_faults():
+    """bf16-only faults planted for one call each: (name, module, attribute,
+    replacement, must be caught). Each drops an fp32 upcast the forward
+    makes. The norms' is rounding-sized (1.2-6x the sound step's readings
+    on every metric) and is measured, not required to be caught."""
+    from repro_torch.models import common, registry
+    return [("the norms' fp32 upcast dropped", common, "rmsnorm",
+             _rmsnorm_no_upcast, False),
+            ("the loss's fp32 upcast dropped", registry, "cross_entropy",
+             _cross_entropy_no_upcast, True)]
+
+
+def bf16_against_fp32(cfg, params, batch, lay, what: str,
+                      cos_min: float) -> list:
+    """Step 0 of the bf16 train step against the same step in fp32 on the
+    same weights widened on the card: loss and global grad-norm relative
+    errors, per-leaf gradient cosine, and (MoE) the (token, layer) sites
+    whose top-k expert set differs between the two (ROADMAP C16). Checks
+    the sound step against the bounds; measures each planted fault the
+    same way and returns (what, fault, caught) for each, caught if it
+    breaks a bound (phase_train checks those that must be caught at its
+    end)."""
+    import torch
+
+    from repro_torch.training.optimizer import global_norm, leaves, tree_map
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    l32, g32, r32 = loss_and_grads(cfg.replace(compute_dtype=torch.float32),
+                                   p32, batch, lay)
+    del p32
+    n32 = float(global_norm(g32))
+
+    def compare(l16, g16, r16):
+        n16 = float(global_norm(g16))
+        cos = []
+        for a, b in zip(leaves(g16), leaves(g32)):
+            a, b = a.float().flatten(), b.flatten()
+            den = float(a.norm() * b.norm())
+            cos.append(float(a @ b) / den if den > 0 else 1.0)
+        flips = sites = 0
+        for a, b in zip(r16, r32):
+            sa, sb = a.sort(-1).values, b.sort(-1).values
+            flips += int((sa != sb).any(-1).sum())
+            sites += a.shape[0]
+        d = dict(loss_rel=abs(l16 - l32) / abs(l32),
+                 gnorm_rel=abs(n16 - n32) / n32, cos_min=min(cos))
+        ok = (d["loss_rel"] <= TRAIN_LOSS_REL
+              and d["gnorm_rel"] <= TRAIN_GNORM_REL
+              and d["cos_min"] >= cos_min)
+        return d, ok, (
+            f"loss {l16:.6f} / {l32:.6f} (rel {d['loss_rel']:.3e}), grad "
+            f"norm {n16:.6f} / {n32:.6f} (rel {d['gnorm_rel']:.3e}), "
+            f"per-leaf grad cosine min {d['cos_min']:.6f} mean "
+            f"{sum(cos) / len(cos):.6f} over {len(cos)} leaves"
+            + (f"; top-{cfg.top_k} sets differ at {flips} of {sites} "
+               f"(token, layer) sites" if cfg.is_moe else ""))
+
+    bounds = (f"bounds: loss {TRAIN_LOSS_REL:.0e}, grad norm "
+              f"{TRAIN_GNORM_REL:.0e}, cosine {cos_min}")
+    d, ok, text = compare(*loss_and_grads(cfg, params, batch, lay))
+    print(f"{what}: step 0 bf16 against fp32 on the same weights: {text} "
+          f"({bounds})", flush=True)
+    check(ok, f"{what}: bf16 against fp32 at step 0 {d}")
+    faults = []
+    for name, mod, attr, fn, must in planted_faults():
+        keep = getattr(mod, attr)
+        setattr(mod, attr, fn)
+        try:
+            got = loss_and_grads(cfg, params, batch, lay)
+        finally:
+            setattr(mod, attr, keep)
+        d, ok, text = compare(*got)
+        del got
+        print(f"{what}: planted fault, {name}: {text}: "
+              f"{'passes the bounds (NOT caught)' if ok else 'caught'}"
+              f"{'' if must else ' (measured, not required)'}", flush=True)
+        if must:
+            faults.append((what, name, not ok))
+    del g32
+    return faults
+
+
+def train_run(what, cfg, layout, params, patches, *, ckpt=None) -> dict:
+    """TRAIN_STEPS bf16 steps of build_train_step from `params` (the step
+    updates its own copy); with `ckpt` = (step, path) an async checkpoint
+    at that step and a host snapshot of the stored params taken there.
+    Prints the loss curve, ms a step, tokens/s and the 6 N tokens
+    bound."""
+    import torch
+
+    from repro_torch.distributed.checkpoint import save_checkpoint
+    from repro_torch.models.registry import count_params_actual
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
+                                                tree_map)
+    from repro_torch.training.train_loop import build_train_step
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(2, TRAIN_STEPS // 20),
+                      total_steps=TRAIN_STEPS)
+    step, _ = build_train_step(cfg, layout, 2, opt=opt, device="cuda")
+    st = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, snap, thread = [], [], None, None
+    for i in range(TRAIN_STEPS):
+        b = train_batch(cfg, i, patches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, st, m = step(params, st, b)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(math.isfinite(losses[-1]), f"{what}: loss {losses[-1]}")
+        if ckpt is not None and i + 1 == ckpt[0]:
+            t0 = time.perf_counter()
+            thread = save_checkpoint(str(ckpt[1]), cfg, params, layout, 2,
+                                     step=i + 1, async_save=True)
+            t_snap = time.perf_counter() - t0
+            snap = tree_map(lambda t: t.detach().to("cpu", copy=True),
+                            params)
+            print(f"{what}: async checkpoint at step {i + 1}: save "
+                  f"returned after {t_snap:.2f} s (the host snapshot), "
+                  f"training went on", flush=True)
+    if thread is not None:
+        t0 = time.perf_counter()
+        thread.join()
+        print(f"{what}: the checkpoint's writer thread joined "
+              f"{time.perf_counter() - t0:.2f} s after the last step",
+              flush=True)
+    N = count_params_actual(params)
+    toks = TRAIN_BATCH * (TRAIN_SEQ + (cfg.num_patches
+                                       if cfg.family == "vlm" else 0))
+    steady = sorted(ms[2:])[len(ms[2:]) // 2]
+    bound = 6.0 * N * toks / 989e12 * 1e3
+    print(f"{what}: loss curve " + " ".join(f"{x:.4f}" for x in losses),
+          flush=True)
+    print(f"{what}: {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}{' + %d patches' % cfg.num_patches if cfg.family == 'vlm' else ''}"
+          f": median {steady:.1f} ms a step (first {ms[0]:.1f}), "
+          f"{toks / steady * 1e3:.1f} tokens/s; 6 N tokens = "
+          f"{6.0 * N * toks / 1e12:.2f} TFLOP at 989 TFLOP/s: bound "
+          f"{bound:.2f} ms, the step at {steady / bound:.1f}x it; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({card_line()})", flush=True)
+    return dict(losses=losses, ms=steady, snap=snap, params=params)
+
+
+def batch_noise(cfg, params, lay, patches, n: int = 5) -> float:
+    """The spread of the loss over batches at fixed weights: the standard
+    deviation of the bf16 loss at the initial weights over the first `n`
+    training batches (each step's loss is on its own batch)."""
+    import torch
+
+    from repro_torch.models.registry import loss_fn
+    ls = []
+    with torch.no_grad():
+        for i in range(n):
+            b = {k: torch.as_tensor(v).cuda()
+                 for k, v in train_batch(cfg, i, patches).items()}
+            ls.append(float(loss_fn(cfg, params, b, lay=lay)))
+    mu = sum(ls) / n
+    return (sum((x - mu) ** 2 for x in ls) / (n - 1)) ** 0.5
+
+
+def check_falls(what: str, losses: list, sigma: float) -> None:
+    """The loss falls from the first step: the mean of the last five steps'
+    losses lies below step 0's by more than 3 sigma, sigma the loss's
+    spread over batches at the initial weights (batch_noise)."""
+    tail = sum(losses[-5:]) / 5
+    margin = 3 * sigma
+    print(f"{what}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the "
+          f"last five {tail:.4f}, {losses[0] - tail:.4f} below step 0); the "
+          f"check: more than 3 sigma = {margin:.4f} below, sigma "
+          f"{sigma:.4f} the spread of the loss over 5 batches at the "
+          f"initial weights", flush=True)
+    check(tail < losses[0] - margin, f"{what}: the loss fell by "
+                                     f"{losses[0] - tail} < {margin}")
+
+
+def tree_equal(a, b) -> bool:
+    """Same leaves, shapes, dtypes and bits."""
+    import torch
+
+    from repro_torch.training.optimizer import leaves
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+    def raw(t):
+        t = t.detach()
+        return t.view(bits[t.element_size()]) if t.is_floating_point() else t
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.device == y.device
+        and torch_equal(raw(x), raw(y)) for x, y in zip(la, lb))
+
+
+def train_resume_check() -> None:
+    """`python -m repro_torch.launch.train --resume` in this process on the
+    card, on whisper-base whole (bf16, its published vocab 51865 padded to
+    52224: the tied table's 359 pad rows move in training), tp at G = 2,
+    12 steps: an unbroken launcher run; the first 6 steps through
+    build_train_step with the launcher's optimizer, data and stubs, and a
+    checkpoint with the optimizer state at step 6; the launcher resumed
+    from it. The first half's and the resumed run's losses equal the
+    unbroken run's within 1e-5 relative. The same 6 steps from the
+    checkpoint with its pad rows dropped (params and moments, as the
+    canonical form alone restores them) show what the check sees of that
+    defect."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.checkpoint import (restore_checkpoint,
+                                                    save_checkpoint)
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.training.data import MarkovData
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import build_train_step
+    d = TRAIN_DIR / "resume"
+    shutil.rmtree(d, ignore_errors=True)
+    steps, half, batch, seq, lr = 12, 6, 8, 64, 3e-3
+    base = ["--arch", "whisper-base", "--mesh", "1x2", "--layout", "tp",
+            "--steps", str(steps), "--batch", str(batch), "--seq", str(seq),
+            "--lr", str(lr)]
+    whole = train_main(base)["losses"]
+    # the launcher's run, cut at `half`
+    cfg = get_config("whisper-base")
+    V = cfg.vocab_size
+    step, init = build_train_step(
+        cfg, "tp", 2, opt=AdamWConfig(lr=lr, warmup_steps=max(2, steps // 20),
+                                      total_steps=steps), device="cuda")
+    data = MarkovData(V, seq, batch, seed=7)
+    frames = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                         dtype=cfg.compute_dtype)
+
+    def run(params, st, lo, hi):
+        out = {}
+        for i in range(lo, hi):
+            b = dict(data.batch_at(i), frames=frames)
+            params, st, m = step(params, st, b)
+            out[i] = float(m["loss"])
+        return params, st, out
+
+    params, st, first = run(*init(0), 0, half)
+    pad = float(params["embed"][V:].detach().abs().max())
+    save_checkpoint(str(d), cfg, params, "tp", 2, opt_state=st, step=half)
+    del params, st
+    # the defect the pad rows guard against, measured on the same run
+    params, st, _ = restore_checkpoint(str(d), cfg, "tp", 2, with_opt=True)
+    for t in (params["embed"], st["m"]["embed"], st["v"]["embed"]):
+        t[V:] = 0
+    _, _, dropped = run(params, st, half, steps)
+    del params, st
+    rest = train_main(base + ["--ckpt", str(d), "--resume"])
+    check(rest["start"] == half and sorted(rest["losses"]) == list(
+        range(half, steps)), f"train resume: resumed at {rest['start']}")
+
+    def worst(losses):
+        return max(abs(x - whole[i]) / abs(whole[i])
+                   for i, x in losses.items())
+    w, w_drop = max(worst(first), worst(rest["losses"])), worst(dropped)
+    print(f"train resume (launch/train.py --resume, whisper-base whole, "
+          f"bf16, tp): unbroken {whole[0]:.4f} -> {whole[steps - 1]:.4f}; "
+          f"at the checkpoint (step {half}) the {padded_vocab_rows(V)} pad "
+          f"rows of the tied table hold max |w| {pad:.4e}; largest relative "
+          f"loss difference from the unbroken run {w:.3e} over {steps} "
+          f"steps (tolerance 1e-5); with the pad rows dropped on restore "
+          f"{w_drop:.3e} ({card_line()})", flush=True)
+    check(w <= 1e-5, f"train resume: losses differ by {w}")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def padded_vocab_rows(V: int) -> int:
+    from repro_torch.core.layouts import padded_vocab
+    return padded_vocab(V) - V
+
+
+def phase_train(results: dict) -> None:
+    """The training path, plain autograd through the port's lm_forward (no
+    hand-written kernel: repro's training reaches no Pallas kernel).
+    (a) paligemma-3b whole with a seeded stub patch prefix, tp; (b)
+    qwen2-moe-a2.7b at full width and TRAIN_MOE_LAYERS of its 24 layers,
+    tp and ep. bf16, MarkovData, batch 8 x seq 64, TRAIN_STEPS steps, remat
+    on. Checks: the loss falls; step 0 in bf16 against fp32 on the same
+    weights, and each planted fault caught by the same bounds; tp == ep in
+    fp32 on the same canonical weights; the tp run's async checkpoint
+    restores byte-exact in tp (the vocab pad rows included) and in ep
+    equal to the direct pack; the launcher's --resume continues an
+    unbroken run (train_resume_check)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.layouts import get_layout, pack_params
+    from repro_torch.distributed.checkpoint import (restore_checkpoint,
+                                                    to_canonical)
+    from repro_torch.models.registry import init_params, loss_fn
+    from repro_torch.training.optimizer import tree_map
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    # (a) paligemma-3b whole, tp
+    cfg = get_config("paligemma-3b")
+    patches = torch.randn((TRAIN_BATCH, cfg.num_patches, cfg.d_model),
+                          generator=gen, device="cuda").to(torch.bfloat16)
+    params = pack_params(cfg, init_params(cfg, SEED, device="cuda"), "tp", 2)
+    faults = bf16_against_fp32(cfg, params, train_batch(cfg, 0, patches),
+                               None, "train vlm", TRAIN_COS_MIN["vlm"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    sigma = batch_noise(cfg, params, None, patches)
+    r = train_run("train vlm (paligemma-3b whole, tp)", cfg, "tp", params,
+                  patches)
+    del params
+    check_falls("train vlm", r["losses"], sigma)
+    V = cfg.vocab_size
+    pad = float(r["params"]["lm_head"][V:].detach().abs().max())
+    print(f"train vlm: the lm_head's {r['params']['lm_head'].shape[0] - V} "
+          f"pad rows (softmax over the padded vocab, as repro) moved to max "
+          f"|w| {pad:.4e}; a checkpoint keeps them in its opt tree",
+          flush=True)
+    del r, patches
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory_line("train vlm")
+
+    # (b) qwen2-moe-a2.7b, full width, TRAIN_MOE_LAYERS layers, tp and ep
+    cfg = get_config("qwen2-moe-a2.7b").replace(num_layers=TRAIN_MOE_LAYERS)
+    glob = init_params(cfg, SEED, device="cuda")
+    b0 = train_batch(cfg, 0, None)
+    # tp == ep in fp32 on the same canonical weights
+    l32 = {}
+    for lo in ("tp", "ep"):
+        p32 = pack_params(cfg, tree_map(lambda t: t.float(), glob), lo, 2)
+        lay = get_layout(lo).expert_layout(cfg, 2)
+        with torch.no_grad():
+            l32[lo] = float(loss_fn(cfg.replace(compute_dtype=torch.float32),
+                                    p32, {k: torch.as_tensor(v).cuda()
+                                          for k, v in b0.items()}, lay=lay))
+        del p32
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = abs(l32["tp"] - l32["ep"]) / abs(l32["tp"])
+    print(f"train moe: fp32 loss at step 0 on the same canonical weights, "
+          f"tp {l32['tp']:.7f} ep {l32['ep']:.7f}: relative difference "
+          f"{rel:.3e} (tolerance 1e-5)", flush=True)
+    check(rel <= 1e-5, f"train moe: tp and ep fp32 losses differ by {rel}")
+    runs = {}
+    for lo in ("tp", "ep"):
+        params = pack_params(cfg, glob, lo, 2)
+        lay = get_layout(lo).expert_layout(cfg, 2)
+        faults += bf16_against_fp32(cfg, params, b0, lay, f"train moe {lo}",
+                                    TRAIN_COS_MIN["moe"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        sigma = batch_noise(cfg, params, lay, None)
+        ck = (TRAIN_CKPT_AT, TRAIN_DIR / "moe") if lo == "tp" else None
+        runs[lo] = train_run(f"train moe (qwen2-moe-a2.7b, {TRAIN_MOE_LAYERS}"
+                             f" layers, {lo})", cfg, lo, params, None,
+                             ckpt=ck)
+        check_falls(f"train moe {lo}", runs[lo]["losses"], sigma)
+        del params
+        if lo == "tp":
+            snap = runs[lo]["snap"]
+        runs[lo] = runs[lo]["losses"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(tree_equal(glob, init_params(cfg, SEED, device="cuda")),
+          "train moe: the train steps changed the caller's weights")
+    del glob
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the checkpoint: byte-exact in its own layout (the stored form, the
+    # vocab pad rows included), the direct pack in the other
+    t0 = time.time()
+    snap = tree_map(lambda t: t.cuda(), snap)
+    V = cfg.vocab_size
+    pad = float(snap["lm_head"][V:].abs().max())
+    got, _, step = restore_checkpoint(str(TRAIN_DIR / "moe"), cfg, "tp", 2)
+    check(step == TRAIN_CKPT_AT and tree_equal(got, snap),
+          "train moe: the tp checkpoint does not restore byte-exact")
+    del got
+    got, _, _ = restore_checkpoint(str(TRAIN_DIR / "moe"), cfg, "ep", 2)
+    canon = to_canonical(cfg, snap, "tp", 2)
+    want = pack_params(cfg, dict(tree_map(lambda t: t.cuda(), canon),
+                                 embed=snap["embed"],
+                                 lm_head=snap["lm_head"]), "ep", 2)
+    check(tree_equal(got, want), "train moe: the checkpoint restored in ep "
+                                 "differs from the direct ep pack")
+    nbytes = sum(f.stat().st_size for f in (TRAIN_DIR / "moe").iterdir())
+    print(f"train moe: the async checkpoint at step {TRAIN_CKPT_AT} "
+          f"({nbytes} bytes on disk) restores byte-exact in tp, the "
+          f"lm_head's {padded_vocab_rows(V)} pad rows (max |w| {pad:.4e}) "
+          f"included, and equal to the direct pack in ep "
+          f"({time.time() - t0:.1f} s for both restores and checks)",
+          flush=True)
+    del got, want, snap, canon
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory_line("train moe")
+    train_resume_check()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    for what, name, caught in faults:
+        check(caught, f"{what}: the planted fault ({name}) passes the "
+                      f"bf16 bounds")
+
+
+def dh256_build_lines(text: str) -> list:
+    """ptxas's register and spill lines of #1's head-dim-256
+    instantiations (paligemma-3b), each named by its kernel and tile."""
+    import re
+    out, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"(paged_attn_\w*?kernel)ILi256E(?:Li(\d+)E)?", line)
+        if "Compiling entry function" in line:
+            name = (f"{m.group(1)}<256{', KS=' + m.group(2) if m.group(2) else ''}>"
+                    if m else None)
+        elif name and ("spill" in line or "registers" in line):
+            out.append(f"  paged_attention dh 256 {name}: {line.strip()}")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -5362,6 +6148,8 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill", "error",
                                         "C7514")):
                 print(f"  {name}: {line.strip()}")
+    for line in dh256_build_lines(logs.get("paged_attention", "")):
+        print(line)
 
     only = None
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
@@ -5380,7 +6168,9 @@ def main() -> int:
               ("dense", lambda: phase_dense(results)),
               ("shared", lambda: phase_shared(results)),
               ("launch", lambda: phase_launch(results)),
-              ("families", lambda: phase_families(results))]
+              ("families", lambda: phase_families(results)),
+              ("vlm", lambda: phase_vlm(results)),
+              ("train", lambda: phase_train(results))]
     results: dict = {"launches": {}}
     t_run = time.time()
     for name, fn in phases:

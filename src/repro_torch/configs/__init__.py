@@ -1,13 +1,14 @@
 """Architecture configs the port serves: the dense family, the MoE family
 (shared experts included: qwen2-moe-a2.7b), the SSM (mamba2-780m), hybrid
-(zamba2-2.7b) and encoder-decoder (whisper-base) families; the VLM config
-waits for the VLM prefix (ROADMAP A6)."""
+(zamba2-2.7b), encoder-decoder (whisper-base) and VLM (paligemma-3b)
+families."""
 from __future__ import annotations
 
 from repro_torch.configs.internlm2_1_8b import CONFIG as _internlm2
 from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 from repro_torch.configs.mistral_large_123b import CONFIG as _mistral_large
 from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral
+from repro_torch.configs.paligemma_3b import CONFIG as _paligemma
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as _qwen2_moe
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen3_4b
 from repro_torch.configs.qwen3_235b_a22b import CONFIG as _qwen3_235b
@@ -18,7 +19,7 @@ from repro_torch.models.common import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {c.name: c for c in [
     _internlm2, _starcoder2, _qwen3_4b, _mistral_large, _mixtral,
-    _qwen3_235b, _qwen2_moe, _whisper, _mamba2, _zamba2]}
+    _qwen3_235b, _qwen2_moe, _whisper, _mamba2, _zamba2, _paligemma]}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -44,11 +44,18 @@
 // per (rank, row, KV head, 32-row tile) walks the live pages serially with
 // fp32 FMA out of shared memory. The path is chosen by dtype alone.
 //
-// Head dims: 64, 80 and 128 (zamba2's shared attention has dh 80). At 80 a
-// K/V row is ten 16-byte chunks, not a multiple of eight: the shared-memory
-// swizzle of the bf16 tiles flips the chunk's low bit on rows 4-7 of every
-// eight (kv_off), QK^T runs five k-steps (the last through ldmatrix.x2),
-// and the f32 kernel's threads past kRowsPerPass * DH sit out the PV pass.
+// Head dims: 64, 80, 128 and 256 (zamba2's shared attention has dh 80,
+// paligemma-3b's MQA 256). At 80 a K/V row is ten 16-byte chunks, not a
+// multiple of eight: the shared-memory swizzle of the bf16 tiles flips the
+// chunk's low bit on rows 4-7 of every eight (kv_off), QK^T runs five
+// k-steps (the last through ldmatrix.x2), and the f32 kernel's threads past
+// kRowsPerPass * DH sit out the PV pass. At 256 the output accumulator
+// alone is 128 fp32 registers a thread, and holding Q's fragments as well
+// (64 more) would spill: the block stages its Q tile once in shared memory
+// behind the page ids (swizzled as the K/V tiles) and each k-step of QK^T
+// reads its A fragments there with ldmatrix (kQSmem); the ring keeps its
+// three stages (196,608 B) and the Q tile adds 8-32 KB, under the 227 KB
+// opt-in.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -250,6 +257,9 @@ int launch_f32_dh(int dh, const void* q, const void* k, const void* v,
     case 128:
       return launch_f32<128>(q, k, v, bt, lens, qoff, out, G, B, Sq, H, K,
                              pages, page, maxp, g_stride, window, s);
+    case 256:
+      return launch_f32<256>(q, k, v, bt, lens, qoff, out, G, B, Sq, H, K,
+                             pages, page, maxp, g_stride, window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -362,10 +372,13 @@ paged_attn_split_kernel(const SplitParams p) {
   constexpr int NP = kKvTile / KS;     // positions per warp per tile
   constexpr int CPR = DH / 8;          // 16-byte chunks per K/V row
   constexpr int TILE_B = kKvTile * DH * 2;
+  // Q's fragments from shared memory (dh 256: see the header)
+  constexpr bool kQSmem = DH >= 256;
   extern __shared__ __align__(128) uint8_t split_smem[];
   // ring: [kStages][K, V][64][DH] bf16, then the split's page ids
-  // [kMaxSplitPages]; the ring is reused by the epilogue as
-  // red_acc [4 warps][16][DH] f32, red_m / red_l [4 warps][16]
+  // [kMaxSplitPages], then (kQSmem) the tile's Q [RG * 16][DH] bf16; the
+  // ring is reused by the epilogue as red_acc [4 warps][16][DH] f32,
+  // red_m / red_l [4 warps][16]
   float* red_acc = reinterpret_cast<float*>(split_smem);
   float* red_m = red_acc + 4 * 16 * DH;
   float* red_l = red_m + 4 * 16;
@@ -409,8 +422,8 @@ paged_attn_split_kernel(const SplitParams p) {
     // this warp's two query rows per thread and their Q fragments
     const int r_lo = row0 + rg * 16 + gq, r_hi = r_lo + 8;
     const int qp_lo = qo + r_lo / rep, qp_hi = qo + r_hi / rep;
-    uint32_t qf[DH / 16][4];
-    {
+    uint32_t qf[kQSmem ? 1 : DH / 16][4];
+    if constexpr (!kQSmem) {
       const __nv_bfloat16* q_lo = nullptr;
       const __nv_bfloat16* q_hi = nullptr;
       if (r_lo < p.rows)
@@ -442,6 +455,23 @@ paged_attn_split_kernel(const SplitParams p) {
     const int* btrow = p.bt + (size_t)gb * p.maxp + pg_lo;
     for (int i = tid; i < pg_hi - pg_lo; i += kSThreads)
       sbt[i] = min(max(btrow[i], 0), p.pages - 1);
+    // the tile's Q rows (zero past p.rows), one 32-bit word a thread a pass
+    const uint32_t qsm =
+        ring + kStages * 2 * TILE_B + kMaxSplitPages * 4;
+    if constexpr (kQSmem) {
+      uint8_t* qs = split_smem + kStages * 2 * TILE_B + kMaxSplitPages * 4;
+      constexpr int WPR = DH / 2;                // words a row
+      for (int i = tid; i < RG * 16 * WPR; i += kSThreads) {
+        const int r = i / WPR, w = i % WPR, rr = row0 + r;
+        uint32_t val = 0u;
+        if (rr < p.rows)
+          val = *reinterpret_cast<const uint32_t*>(
+              p.q + (((size_t)gb * p.Sq + rr / rep) * p.H + kvh * rep +
+                     rr % rep) * DH + 2 * w);
+        *reinterpret_cast<uint32_t*>(qs + kv_off<DH>(r, w / 4) +
+                                     (w % 4) * 4) = val;
+      }
+    }
     __syncthreads();
 
     // gather one 64-position tile of K and V through the block table. With
@@ -499,20 +529,43 @@ paged_attn_split_kernel(const SplitParams p) {
 
       // S = Q K^T for the warp's NP positions
       float s[NP / 8][4];
+      if constexpr (kQSmem) {
+        // k-steps outside: a pair of Q fragments read once serves every
+        // position block (each s[nt] still sums its k-steps in order)
 #pragma unroll
-      for (int nt = 0; nt < NP / 8; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        for (int nt = 0; nt < NP / 8; ++nt)
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        const int qr = rg * 16 + lane % 16;
 #pragma unroll
         for (int kk = 0; kk < DH / 16; kk += 2) {
-          uint32_t b[4];
-          const int r = w0 + nt * 8 + lane % 8;
-          if (kk + 1 < DH / 16) {
+          uint32_t a0[4], a1[4];
+          ldsm_x4(qsm + kv_off<DH>(qr, 2 * kk + lane / 16), a0);
+          ldsm_x4(qsm + kv_off<DH>(qr, 2 * kk + 2 + lane / 16), a1);
+#pragma unroll
+          for (int nt = 0; nt < NP / 8; ++nt) {
+            uint32_t b[4];
+            const int r = w0 + nt * 8 + lane % 8;
             ldsm_x4(kt + kv_off<DH>(r, 2 * kk + lane / 8), b);
-            mma16816(s[nt], qf[kk], b[0], b[1]);
-            mma16816(s[nt], qf[kk + 1], b[2], b[3]);
-          } else {   // an odd last k-step (dh 80): its two chunks only
-            ldsm_x2(kt + kv_off<DH>(r, 2 * kk + (lane / 8) % 2), b);
-            mma16816(s[nt], qf[kk], b[0], b[1]);
+            mma16816(s[nt], a0, b[0], b[1]);
+            mma16816(s[nt], a1, b[2], b[3]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NP / 8; ++nt) {
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < DH / 16; kk += 2) {
+            uint32_t b[4];
+            const int r = w0 + nt * 8 + lane % 8;
+            if (kk + 1 < DH / 16) {
+              ldsm_x4(kt + kv_off<DH>(r, 2 * kk + lane / 8), b);
+              mma16816(s[nt], qf[kk], b[0], b[1]);
+              mma16816(s[nt], qf[kk + 1], b[2], b[3]);
+            } else {   // an odd last k-step (dh 80): its two chunks only
+              ldsm_x2(kt + kv_off<DH>(r, 2 * kk + (lane / 8) % 2), b);
+              mma16816(s[nt], qf[kk], b[0], b[1]);
+            }
           }
         }
       }
@@ -698,7 +751,8 @@ int launch_split(const SplitParams& p, int G, cudaStream_t stream) {
   constexpr int ring = kStages * 2 * kKvTile * DH * 2;
   constexpr int red = (4 * 16 * DH + 2 * 4 * 16) * 4;
   static_assert(red <= ring, "the epilogue reuses the ring");
-  constexpr int smem = ring + kMaxSplitPages * 4;
+  constexpr int q_tile = DH >= 256 ? (4 / KS) * 16 * DH * 2 : 0;
+  constexpr int smem = ring + kMaxSplitPages * 4 + q_tile;
   auto kern = paged_attn_split_kernel<DH, KS>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -734,6 +788,9 @@ int launch_bf16(int dh, const SplitParams& p, int G, cudaStream_t s) {
     case 12816: return launch_split<128, 4>(p, G, s);
     case 12832: return launch_split<128, 2>(p, G, s);
     case 12864: return launch_split<128, 1>(p, G, s);
+    case 25616: return launch_split<256, 4>(p, G, s);
+    case 25632: return launch_split<256, 2>(p, G, s);
+    case 25664: return launch_split<256, 1>(p, G, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,8 +11,9 @@ Rank failure is the degenerate case of a cross-world shrink (DESIGN.md
 `core.switch.plan_rank_shrink` planner, the same ownership diff an
 elastic world-size switch uses.
 
-`elastic_restore` (a checkpoint restored onto another world) waits for
-the port of `distributed/checkpoint.py`.
+Training: re-mesh via the layout-agnostic checkpoint (`elastic_restore`):
+the on-disk form is global-logical, so restoring at another group size G
+reshards. The port has no mesh object: the caller gives G.
 """
 from __future__ import annotations
 
@@ -44,6 +45,14 @@ def plan_rescale(cfg, old_mesh_shape: dict, new_mesh_shape: dict,
             ok, why = False, (f"experts {cfg.num_experts} !~ "
                               f"model axis {G_new}")
     return RescalePlan(old_mesh_shape, new_mesh_shape, ok, why)
+
+
+def elastic_restore(ckpt_path: str, cfg, layout: str, G: int, *,
+                    device="cuda"):
+    """Restore a checkpoint onto a group of G ranks (the rescale
+    operation): (params, opt, step), as restore_checkpoint."""
+    from repro_torch.distributed.checkpoint import restore_checkpoint
+    return restore_checkpoint(ckpt_path, cfg, layout, G, device=device)
 
 
 # ---------------------------------------------------------------------------

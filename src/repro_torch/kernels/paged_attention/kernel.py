@@ -18,7 +18,8 @@ from repro_torch.kernels import build, dispatch
 OP = "paged_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_PAGE = 64           # shared-memory K/V tile rows (csrc: kMaxPage)
-HEAD_DIMS = (64, 80, 128)  # csrc instantiations (launch_f32_dh, launch_bf16)
+HEAD_DIMS = (64, 80, 128, 256)  # csrc instantiations (launch_f32_dh,
+                                #   launch_bf16)
 SMS = 132               # streaming multiprocessors of an H100 SXM
 TARGET_BLOCKS = 8 * SMS  # split blocks a launch aims at: about four
                          # waves of two resident blocks per SM

@@ -164,6 +164,15 @@ def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor):
     return gates, eids, probs
 
 
+def load_balance_loss(probs: torch.Tensor, eids: torch.Tensor,
+                      E: int) -> torch.Tensor:
+    """Switch-style aux loss: E * mean(frac_tokens) . mean(router_prob)."""
+    khot = F.one_hot(eids.long(), E).float().sum(-2)
+    frac = khot.mean(0)
+    pmean = probs.float().mean(0)
+    return E * torch.sum(frac * pmean) / eids.shape[-1]
+
+
 def _dispatch_tensors(khot: torch.Tensor, counts: torch.Tensor, C: int):
     """khot (..., T, E) in {0,1} -> (pos, keep, new_counts).
 

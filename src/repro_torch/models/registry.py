@@ -2,13 +2,15 @@
 counts (port of repro/models/registry.py).
 
 `init_params` builds `repro`'s global param tree for the family (the
-transformer's `init_lm` for dense and moe, `init_ssm_lm`, `init_hybrid`,
-`init_encdec`) with the same shapes, dtypes and fan-in scales, drawn on the
-target device from a seeded `torch.Generator`. The draws are not
-`jax.random`'s, so weights that must equal `repro`'s come across through
-`repro_torch.bridge` instead. The VLM family waits for its patch prefix
-(ROADMAP A6) and raises; the parameter counts cover every family, since
-they are shape arithmetic.
+transformer's `init_lm` for dense, moe and vlm, `init_ssm_lm`,
+`init_hybrid`, `init_encdec`) with the same shapes, dtypes and fan-in
+scales, drawn on the target device from a seeded `torch.Generator`. The
+draws are not `jax.random`'s, so weights that must equal `repro`'s come
+across through `repro_torch.bridge` instead. A VLM's batch carries its
+stub image patches (B, P, D), which the forward prepends as
+`prefix_embeds`. `remat` is the transformer's layer checkpointing (the
+other families' forwards keep no remat of their own: it changes no
+value).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from repro_torch.models.moe import ExpertLayout
 from repro_torch.models.ssm_lm import init_ssm_lm, ssm_lm_forward
 from repro_torch.models.transformer import init_lm, lm_forward
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 _INIT = {"ssm": init_ssm_lm, "hybrid": init_hybrid, "encdec": init_encdec}
 
 
@@ -43,9 +45,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
-            lay: ExpertLayout | None = None) -> torch.Tensor:
-    """batch: tokens (B,S) [+ frames (B,T,D) for encdec] -> logits
-    (B,S,V)."""
+            lay: ExpertLayout | None = None,
+            remat: bool = True) -> torch.Tensor:
+    """batch: tokens (B,S) [+ frames (B,T,D) for encdec | patches (B,P,D)
+    for vlm] -> logits (B,S,V)."""
     _check_family(cfg)
     if cfg.family == "encdec":
         return encdec_forward(cfg, params, batch["tokens"], batch["frames"])
@@ -53,12 +56,16 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
         return ssm_lm_forward(cfg, params, batch["tokens"])
     if cfg.family == "hybrid":
         return hybrid_forward(cfg, params, batch["tokens"])
-    return lm_forward(cfg, params, batch["tokens"], lay=lay)
+    if cfg.family == "vlm":
+        return lm_forward(cfg, params, batch["tokens"], lay=lay, remat=remat,
+                          prefix_embeds=batch.get("patches"))
+    return lm_forward(cfg, params, batch["tokens"], lay=lay, remat=remat)
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
-            lay: ExpertLayout | None = None) -> torch.Tensor:
-    logits = forward(cfg, params, batch, lay=lay)
+            lay: ExpertLayout | None = None,
+            remat: bool = True) -> torch.Tensor:
+    logits = forward(cfg, params, batch, lay=lay, remat=remat)
     return cross_entropy(logits, batch["labels"], cfg.logit_softcap)
 
 

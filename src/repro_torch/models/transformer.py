@@ -2,17 +2,27 @@
 repro/models/transformer.py).
 
 `lm_forward` is the global-math forward: the port's reference for its own
-serve step (tests/test_torch_dense.py, `chip_smoke.py`'s reference and
-dense phases). It is plain torch — `flash_attention` and `moe_ffn_global`
-— and calls none of the kernels the serve step runs. A loop over layers
-stands in for repro's `lax.scan`; there is no remat (no training here) and
-no prefix embeddings (the VLM prefix is not ported, ROADMAP A6).
+serve step (tests/test_torch_dense.py, `chip_smoke.py`'s reference, dense
+and vlm phases) and the forward that training differentiates
+(training/train_loop.py). It is plain torch — `flash_attention` and
+`moe_ffn_global` — and calls none of the kernels the serve step runs. A
+loop over layers stands in for repro's `lax.scan`, and
+`torch.utils.checkpoint` around each layer for its `jax.checkpoint`
+(remat: a backward pass keeps each layer's input and recomputes the rest).
+A VLM prepends its patch embeddings (`prefix_embeds`) to the tokens' and
+drops their positions from the logits, as repro does.
+
+The params may be the global tree or `core/layouts.pack_params`' stored
+form (vocab padded, rank-major experts, rank-major dense MLP): the stored
+MLP is folded back per layer by views and one copy that autograd follows,
+so a gradient comes back in the stored form.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import attn_forward, init_attention
 from repro_torch.models.common import (ModelConfig, apply_norm, cross_entropy,
@@ -48,6 +58,22 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, *, device) -> dict:
     return p
 
 
+def mlp_global(mlp: dict, lead: int = 0) -> dict:
+    """A dense MLP in the global form: rank-major weights (the stored
+    form, w_gate / w_up (*lead, G, D, F/G), w_down (*lead, G, F/G, D)) are
+    folded back to (*lead, D, F) / (*lead, F, D); global ones pass
+    through. `lead` leading dims (the stacked layers) pass through."""
+    if mlp["w_up"].dim() == 2 + lead:
+        return mlp
+    out = {}
+    for k, w in mlp.items():
+        G, a, b = w.shape[lead:]
+        pre = tuple(w.shape[:lead])
+        out[k] = (w.reshape(pre + (G * a, b)) if k == "w_down"
+                  else w.movedim(lead, lead + 1).reshape(pre + (a, G * b)))
+    return out
+
+
 def block_forward(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
                   lay: ExpertLayout | None = None, q_offset: int = 0,
                   kv_ctx=None, causal: bool = True, rope: bool = True,
@@ -66,7 +92,7 @@ def block_forward(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
         y = moe_ffn_global(cfg, lp["moe"], h.reshape(B * S, D), lay,
                            cap_factor=cap_factor).reshape(B, S, D)
     else:
-        y = mlp_forward(cfg, lp["mlp"], h)
+        y = mlp_forward(cfg, mlp_global(lp["mlp"]), h)
     x = x + y.to(x.dtype)
     if return_kv:
         return x, kv
@@ -75,28 +101,46 @@ def block_forward(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
 
 def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                lay: ExpertLayout | None = None,
-               cap_factor: float | None = None) -> torch.Tensor:
-    """tokens (B,S) -> logits (B,S,V) in the compute dtype.
+               cap_factor: float | None = None,
+               prefix_embeds: torch.Tensor | None = None,
+               remat: bool = True) -> torch.Tensor:
+    """tokens (B,S) -> logits (B,S,V) in the compute dtype. prefix_embeds
+    (B,P,D) is prepended to the scaled token embeddings (VLM), attended
+    causally with them, and its P positions are dropped from the logits.
 
     The weights may be stored in another dtype than `cfg.compute_dtype`
     (bf16 weights, fp32 compute): each product casts one weight, so no
-    second copy of the store is held."""
+    second copy of the store is held. remat checkpoints each layer while
+    autograd records (it changes no value)."""
     if lay is None and cfg.is_moe:
         lay = make_expert_layout(cfg.num_experts, 1, "ep")
     cdt = cfg.compute_dtype
     x = params["embed"][tokens.long()].to(cdt)
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32) \
         .to(cdt).item()
+    P = 0
+    if prefix_embeds is not None:
+        P = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(cdt), x], dim=1)
+
+    def layer(h, lp):
+        return block_forward(cfg, lp, h, lay=lay, cap_factor=cap_factor)
+
     for li in range(params["layers"]["attn_norm"]["scale"].shape[0]):
-        x = block_forward(cfg, index_tree(params["layers"], li), x, lay=lay,
-                          cap_factor=cap_factor)
-    x = apply_norm(cfg, x, params["final_norm"])
+        lp = index_tree(params["layers"], li)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, lp, use_reentrant=False)
+        else:
+            x = layer(x, lp)
+    x = apply_norm(cfg, x[:, P:], params["final_norm"])
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return matmul(x, head.t().to(cdt))
 
 
 def lm_loss(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            labels: torch.Tensor, *,
-            lay: ExpertLayout | None = None) -> torch.Tensor:
-    logits = lm_forward(cfg, params, tokens, lay=lay)
+            labels: torch.Tensor, *, lay: ExpertLayout | None = None,
+            prefix_embeds: torch.Tensor | None = None,
+            remat: bool = True) -> torch.Tensor:
+    logits = lm_forward(cfg, params, tokens, lay=lay,
+                        prefix_embeds=prefix_embeds, remat=remat)
     return cross_entropy(logits, labels, cfg.logit_softcap)

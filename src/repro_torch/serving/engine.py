@@ -66,8 +66,10 @@ from repro_torch.serving.qos import QosPolicy, slo_targets
 from repro_torch.serving.request import Request
 from repro_torch.serving.scheduler import Scheduler
 
-#: families the engine serves (the transformer step of serving/steps.py)
-ENGINE_FAMILIES = ("dense", "moe")
+#: families the engine serves (the transformer step of serving/steps.py);
+#: a vlm config is served as its text decoder, with no image prefix on the
+#: serve path, as repro's engine serves it
+ENGINE_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclass

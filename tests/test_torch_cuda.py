@@ -863,3 +863,82 @@ def test_family_step_on_card_matches_cpu(card, name):
         (t0, l0), (t1, l1) = outs.values()
         assert torch.equal(t0, t1)
         torch.testing.assert_close(l1, l0, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("H,Sq", [(8, 1), (4, 1), (8, 4), (4, 40)])
+def test_paged_attention_head_dim_256(card, dtype, tol, H, Sq):
+    """#1 at paligemma-3b's head dim 256 over one KV head (MQA): ep's 8
+    query heads and tp's 4 a rank, decode rows (a 16-row tile), Sq 4 (32
+    rows) and a prefill chunk (64-row tiles), both paths, against the plain
+    version."""
+    rng = np.random.default_rng(H * 100 + Sq)
+    K, dh, G, B, page, maxp = 1, 256, 2, 4, 16, 26
+    pages = G * B * maxp + 1
+    q = torch.from_numpy(rng.standard_normal((G, B, Sq, H, dh)))
+    kp = torch.from_numpy(rng.standard_normal((G, pages, page, K, dh)))
+    vp = torch.from_numpy(rng.standard_normal((G, pages, page, K, dh)))
+    q, kp, vp = (t.to(dtype) for t in (q, kp, vp))
+    bt = torch.from_numpy(rng.permutation(pages - 1)[:G * B * maxp]
+                          .reshape(G, B, maxp) + 1).int()
+    kv = torch.from_numpy(rng.integers(max(Sq, 64), maxp * page + 1,
+                                       (G, B))).int()
+    qo = kv - Sq
+    args = (q, kp, vp, bt, kv)
+    ref = paged_attention(*args, q_offset=qo, window=0)
+    dispatch.reset_counts()
+    out = paged_attention(*(a.to(card) for a in args), q_offset=qo.to(card),
+                          window=0)
+    torch.cuda.synchronize()
+    assert dispatch.calls("paged_attention") == 1
+    torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("name", ["tiny_moe", "paligemma-3b"])
+def test_train_step_on_card_matches_cpu(card, name):
+    """Two AdamW steps of a small f32 model (tiny_moe in ep, reduced
+    paligemma-3b with its patch prefix in tp) on the card equal the CPU's:
+    losses and grad norms within 1e-5 relative; parameters within 1e-5 in
+    99.9% of elements and every one within lr x steps (Adam's normalised
+    step can flip where a gradient is noise)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.layouts import pack_params
+    from repro_torch.models.registry import init_params
+    from repro_torch.training.data import MarkovData
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
+                                                leaves)
+    from repro_torch.training.train_loop import build_train_step
+    cfg = (get_config("mixtral-8x7b").reduced(
+        num_heads=8, num_kv_heads=2, head_dim=8, d_model=32, num_layers=2,
+        num_experts=8, top_k=2, d_expert=32, vocab_size=256,
+        capacity_factor=8.0) if name == "tiny_moe"
+        else get_config(name).reduced())
+    layout = "ep" if name == "tiny_moe" else "tp"
+    data = MarkovData(cfg.vocab_size, 16, 4, seed=3)
+    patches = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, max(cfg.num_patches, 1), cfg.d_model)).astype(np.float32))
+    glob = init_params(cfg, 0, device="cpu")
+    out = {}
+    for dev in ("cpu", card):
+        step, _ = build_train_step(cfg, layout, 2, opt=AdamWConfig(
+            lr=1e-3, warmup_steps=1), device=dev)
+        # the step clones the caller's params: glob stays as it was
+        p = pack_params(cfg, _tree_to(glob, dev), layout, 2)
+        st = adamw_init(p)
+        ms = []
+        for i in range(2):
+            b = dict(data.batch_at(i))
+            if cfg.family == "vlm":
+                b["patches"] = patches
+            p, st, m = step(p, st, b)
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        out[str(dev)] = (ms, p)
+    (m_cpu, p_cpu), (m_card, p_card) = out["cpu"], out[str(card)]
+    np.testing.assert_allclose(m_card, m_cpu, rtol=1e-5)
+    for a, b in zip(leaves(p_card), leaves(p_cpu)):
+        d = (a.detach().cpu() - b.detach()).abs()
+        assert float(d.max()) <= 2 * 1e-3
+        assert float((d > 1e-5 + 1e-5 * b.detach().abs()).float().mean()) \
+            <= 1e-3

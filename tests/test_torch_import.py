@@ -30,7 +30,14 @@ def test_port_imports_no_jax_or_repro():
         "          'repro_torch.models.hybrid', 'repro_torch.models.encdec',\n"
         "          'repro_torch.configs.mamba2_780m',\n"
         "          'repro_torch.configs.zamba2_2_7b',\n"
-        "          'repro_torch.configs.whisper_base'):\n"
+        "          'repro_torch.configs.whisper_base',\n"
+        "          'repro_torch.configs.paligemma_3b',\n"
+        "          'repro_torch.training.data', 'repro_torch.training.optimizer',\n"
+        "          'repro_torch.training.train_loop',\n"
+        "          'repro_torch.distributed.checkpoint',\n"
+        "          'repro_torch.distributed.compression',\n"
+        "          'repro_torch.distributed.collectives',\n"
+        "          'repro_torch.launch.train'):\n"
         "    assert m in sys.modules, m\n"
         "n = sum(1 for m in sys.modules if m.startswith('repro_torch.'))\n"
         "print('ok', n)\n")
@@ -40,7 +47,7 @@ def test_port_imports_no_jax_or_repro():
                          text=True, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
-    assert int(out.stdout.split()[1]) >= 50     # every module was imported
+    assert int(out.stdout.split()[1]) >= 79     # every module was imported
 
 
 def test_chip_smoke_imports_no_jax_or_repro():
@@ -125,6 +132,24 @@ def test_launcher_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--workload", "rollout", "--scale", "0.005"])
+
+
+def test_train_entry_points_default_to_cuda(monkeypatch):
+    """`build_train_step`, the checkpoint restore and `python -m
+    repro_torch.launch.train` run on the card unless the caller asks for
+    the CPU; without a card they raise."""
+    from repro_torch.distributed.checkpoint import restore_checkpoint
+    from repro_torch.launch.train import main
+    from repro_torch.training.train_loop import build_train_step
+    from tests._torch_common import port_tiny_moe
+    for fn in (build_train_step, restore_checkpoint):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_train_step(port_tiny_moe(), "tp", 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--reduced", "--steps", "1"])
+    build_train_step(port_tiny_moe(), "tp", 2, device="cpu")
 
 
 def test_kernel_wrappers_do_not_fall_back():

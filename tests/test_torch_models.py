@@ -362,15 +362,10 @@ def test_init_params_tree_and_bridge_roundtrip(name):
 
 @pytest.mark.parametrize("name", ["mamba2-780m", "whisper-base",
                                   "zamba2-2.7b", "paligemma-3b"])
-def test_unported_families_raise(name):
-    """The SSM, encoder-decoder and hybrid families initialise on the CPU
-    with counts equal to the analytic ones; the VLM family (its patch
-    prefix not ported) still raises."""
+def test_other_families_init_to_analytic_counts(name):
+    """The SSM, encoder-decoder, hybrid and VLM families initialise on the
+    CPU with counts equal to the analytic ones."""
     tc = _port_cfg(j_get_config(name).reduced(param_dtype=jnp.float32,
                                               compute_dtype=jnp.float32))
-    if tc.family == "vlm":
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            treg.init_params(tc, device="cpu")
-        return
     p = treg.init_params(tc, device="cpu")
     assert treg.count_params_actual(p) == treg.count_params_analytic(tc)
