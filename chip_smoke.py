@@ -126,8 +126,9 @@ Phases (any failure exits non-zero):
                phase's rule (first tokens included); prints the logit
                error, the counts and the reference's peak memory.
  12. dense — a small f32 dense model's prefill on the card and the CPU
-               (equal logits and tokens); then qwen3-4b at full width and
-               full depth (36 layers, ~8.8 GB bf16), seeded `init_params`
+               (equal logits and tokens); then qwen3-4b at full width, 16
+               of its 36 layers (`DENSE_LAYERS`, the script's time),
+               seeded `init_params`
                on the card, G=2, `EngineConfig()` with the fused loop of 8
                and every graph captured at warmup: the serve phase's 8
                requests in tp, in ep, and once more through a monolithic
@@ -193,9 +194,10 @@ Phases (any failure exits non-zero):
                (serving/steps_extra.py). First small f32 models of each
                family at mesh (1, 2): the card's tokens equal the CPU's,
                tp's equal ep's, and whisper's chunked prefill equals token
-               by token. Then mamba2-780m (48 layers), zamba2-2.7b (54
-               mamba layers, the shared attention at 9 sites, heads of 80)
-               and whisper-base (6 + 6 layers, 1500 stub frames) whole,
+               by token. Then mamba2-780m (24 of 48 layers), zamba2-2.7b
+               (24 of 54 mamba layers, the shared attention at 4 sites,
+               heads of 80; `FAMILY_LAYERS`, the script's time) and
+               whisper-base (6 + 6 layers, 1500 stub frames) whole,
                bf16, seeded `init_params` on the card, mesh (1, 2), 8
                requests of 32 new tokens: prompts of 64-384 tokens fed one
                a dispatch (the recurrent families, their steps replayed
@@ -238,6 +240,35 @@ Phases (any failure exits non-zero):
                in this process) stopped at step 6 and `--resume`d equals
                the unbroken run. Prints ms a step, tokens/s, the 6 N
                tokens bound and the peak.
+
+ 18. dryrun — the dry run (launch/dryrun.py) on `meta`, no kernel launched:
+               `python -m repro_torch.launch.dryrun` in four subprocesses
+               started together (with the train phase in a whole run: they
+               need no card), on qwen3-4b, qwen2-moe-a2.7b and
+               paligemma-3b at decode_32k and prefill_32k (tp, ep) and
+               qwen3-235b-a22b at decode_32k (tp, ep, tpep), pod1, world 8:
+               every cell ok; prints each cell's per-rank argument and temp
+               GiB, whether it fits 80 GiB, its three roofline terms on the
+               H100 and the dominant one, and its trace seconds. Then, at
+               mesh (1, 2), tp and ep, qwen3-4b's decode step at the dense
+               phase's cache and a 2 x 512-token prefill chunk of
+               qwen2-moe-a2.7b cut to 2 layers: the dry run's argument
+               bytes equal the same pack and pool built on the card,
+               exactly, and its temp bytes stand beside
+               max_memory_allocated() above the arguments in one real step
+               (ratio printed; the MoE's meta temp is at the static expert
+               capacity, the eager prefill trims to the largest load).
+               `analytic_terms` at each served model's decode shape (B 8,
+               context 416, x G 2) beside PERF.md's hand-derived bounds.
+               Last, `attn_decode` against kernel #1: one layer at
+               qwen3-235b's decode shapes (2 x 4 rows, kv 64-416) and at
+               paligemma-3b's (heads of 256 over one KV head): the paged
+               path (new K/V written into its page, #1 over the block
+               table) against `attn_decode` in fp32 over the cache #4
+               gathered from the same pool, within BF16_TOL in bf16 and
+               ATTN_DECODE_F32_TOL in f32, where the same path with the
+               new token left out of the lengths must fail; #1 and #4 must
+               launch.
 
 `python3 chip_smoke.py --only reference,dense` runs the named phases alone
 (after the build) and prints no kernels line and no result line.
@@ -3363,20 +3394,21 @@ def phase_reference(results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the dense family at full width and depth (qwen3-4b)
+# phase 12: the dense family at full width (qwen3-4b)
 # ---------------------------------------------------------------------------
 
-DENSE_CHUNK_LAYERS = 9      # ep->tp in 4 chunks of 9 of the 36 layers
+DENSE_LAYERS = 16           # of qwen3-4b's 36: the script's time
+DENSE_CHUNK_LAYERS = 4      # ep->tp in 4 chunks of 4 of the 16 layers
 DENSE_MONO_AT = 4           # tp->ep monolithic, prefills in flight
 DENSE_CHUNKED_AT = 10       # ep->tp chunked, decode between the chunks
 
 
 def dense_model():
-    """qwen3-4b whole: 36 layers, d_model 2560, 32/8 heads of 128, d_ff
-    9728, vocab 151936, qk-norm; bf16 (~8 GB)."""
+    """qwen3-4b at full width, DENSE_LAYERS of its 36 layers: d_model
+    2560, 32/8 heads of 128, d_ff 9728, vocab 151936, qk-norm; bf16."""
     from repro_torch.configs import get_config
     from repro_torch.serving.kvcache import CacheConfig
-    return (get_config("qwen3-4b"),
+    return (get_config("qwen3-4b").replace(num_layers=DENSE_LAYERS),
             CacheConfig(page_size=16, pages_ep=256, max_pages_per_req=32))
 
 
@@ -3518,7 +3550,7 @@ def dense_attention_cases(cfg, G: int, B: int, chunk: int, kv_hi: int):
 
 def phase_dense(results: dict) -> None:
     """(a) A small f32 dense model's prefill on the card and the CPU
-    (parity_check). (b) qwen3-4b at full width and depth, bf16, seeded
+    (parity_check). (b) qwen3-4b at full width (DENSE_LAYERS), bf16, seeded
     `init_params` on the card, G=2, `EngineConfig()` with the fused loop of
     8 and every graph captured at warmup: the serve phase's 8 requests in
     tp, then in ep, then once more with a monolithic tp->ep switch and an
@@ -4843,6 +4875,9 @@ def phase_launch(results: dict) -> None:
 # ---------------------------------------------------------------------------
 
 FAMILY_MODELS = ("mamba2-780m", "zamba2-2.7b", "whisper-base")
+# depth cuts for the script's time (whisper-base runs whole); zamba2 keeps
+# its shared attention every 6 mamba layers (4 sites of its 9)
+FAMILY_LAYERS = {"mamba2-780m": 24, "zamba2-2.7b": 24}
 FAMILY_NEW = 32             # new tokens a request
 FAMILY_CHUNK = 16           # whisper's prefill-chunk rows
 FAMILY_F32_TOL = 1e-3      # fp32 step vs fp32 forward, x max |logit|
@@ -5245,12 +5280,15 @@ def family_small() -> None:
 
 
 def family_model(name: str):
-    """(config, cache geometry, prompts) of a whole family model."""
+    """(config, cache geometry, prompts) of a family model at full width,
+    FAMILY_LAYERS deep where it is cut."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.serving.kvcache import CacheConfig
     cfg = get_config(name)
+    if name in FAMILY_LAYERS:
+        cfg = cfg.replace(num_layers=FAMILY_LAYERS[name])
     rng = np.random.default_rng(SEED + 15)
     if cfg.family == "encdec":
         lens = rng.integers(16, 65, 8)
@@ -5264,7 +5302,7 @@ def family_model(name: str):
 
 
 def family_whole(name: str, results: dict) -> None:
-    """One family model whole (full width and depth, bf16, seeded
+    """One family model (full width, FAMILY_LAYERS deep, bf16, seeded
     `init_params` on the card) at mesh (1, 2) with 8 requests, served in
     tp and in ep, then each layout's stream teacher-forced through the
     other layout's step; every served token held to the fp32 forward by
@@ -5360,7 +5398,7 @@ def phase_families(results: dict) -> None:
                                     f"clear-margin differences: "
                                     f"{n['bad'][:6]}")
                 continue
-            # ROADMAP C21: at 48-54 mamba layers the unchanged rule cannot
+            # ROADMAP C21: at 24-54 mamba layers the unchanged rule cannot
             # clear single bf16 tokens; the fp32 step carries the token
             # check (family_fp32_step) and the bf16 serve is held to the
             # floor of the forward's own bf16 compute
@@ -6108,6 +6146,340 @@ def phase_train(results: dict) -> None:
                       f"bf16 bounds")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the dry run on `meta`, its memory model against the card, and
+# attn_decode against kernel #1
+# ---------------------------------------------------------------------------
+
+# one subprocess each, all started together: the longest (qwen3-235b's
+# tpep, which traces all 16 groups) sets the phase's pace
+DRYRUN_RUNS = (("qwen3-4b,paligemma-3b", "decode_32k,prefill_32k", "tp,ep"),
+               ("qwen2-moe-a2.7b", "decode_32k,prefill_32k", "tp,ep"),
+               ("qwen3-235b-a22b", "decode_32k", "tp,ep"),
+               ("qwen3-235b-a22b", "decode_32k", "tpep"))
+DRYRUN_WORLD = 8            # an H100 node's NVLink domain
+DRYRUN_TIMEOUT = 300        # seconds for each dry-run subprocess
+DRYRUN_DIR = REPO / "build" / "chip_smoke_dryrun"     # gitignored
+# PERF.md's hand-derived decode bounds, ms a token of the served models
+# (B 8, context up to 416, mesh (1, 2) stacked on the one card)
+SERVED_BOUNDS = {"qwen3-4b": 2.6, "qwen2-moe-a2.7b": 4.242,
+                 "paligemma-3b": 1.137}
+SERVED_SHAPE = (416, 8)     # context, batch of the served decode
+MEMORY_MOE_LAYERS = 2       # qwen2-moe-a2.7b's depth in the memory model
+MEMORY_MOE_CHUNK = (2, 512)  # rows, tokens of its prefill chunk
+ATTN_DECODE_F32_TOL = 1e-5  # #1's f32 paged path vs fp32 attn_decode
+
+
+def dryrun_start() -> list:
+    """Start `python -m repro_torch.launch.dryrun` as a user runs it, one
+    subprocess per entry of DRYRUN_RUNS (pod1, world DRYRUN_WORLD), all at
+    once; `dryrun_finish` collects them."""
+    import os
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+         "--shape", s, "--layout", lo, "--mesh", "pod1", "--world",
+         str(DRYRUN_WORLD), "--out", str(DRYRUN_DIR)], cwd=str(REPO),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for a, s, lo in DRYRUN_RUNS]
+
+
+def dryrun_finish(procs: list, t0: float) -> None:
+    """Every cell of the dry-run subprocesses ok; prints per-rank argument /
+    temp GiB, the fit in 80 GiB, the three roofline terms and the dominant
+    one, and the trace seconds."""
+    n_cells = 0
+    for p, (a, s, lo) in zip(procs, DRYRUN_RUNS):
+        try:
+            out, _ = p.communicate(timeout=max(1.0, DRYRUN_TIMEOUT
+                                               - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.communicate()
+            check(False, f"dryrun: {a} did not finish in {DRYRUN_TIMEOUT} s")
+        check(p.returncode == 0, f"dryrun {a}: exit {p.returncode}: "
+                                 f"{out[-2000:]}")
+        n_cells += len(a.split(",")) * len(s.split(",")) * len(lo.split(","))
+        print(out.strip().splitlines()[-1], flush=True)
+    print(f"dryrun: the CLI runs took {time.time() - t0:.1f} s wall from "
+          f"their start (subprocess start-up included)", flush=True)
+    recs = [json.loads(f.read_text()) for f in sorted(DRYRUN_DIR.glob(
+        "*.json"))]
+    check(len(recs) == n_cells, f"dryrun: {len(recs)} records of {n_cells}")
+    gib = 2 ** 30
+    for r in recs:
+        name = f"{r['arch']} {r['shape']} {r['layout']}"
+        check(r["status"] == "ok", f"dryrun {name}: {r.get('error')}")
+        m, a = r["memory"], r["analytic"]
+        terms = {k: a[k] * 1e3 for k in ("t_compute", "t_memory",
+                                          "t_collective")}
+        per = (m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+               + m["output_size_in_bytes"])
+        print(f"dryrun {name} pod1 world {r['world']} ({r['devices']} "
+              f"cards): per rank args {m['argument_size_in_bytes'] / gib:.3f}"
+              f" GiB, temp {m['temp_size_in_bytes'] / gib:.3f} GiB, out "
+              f"{m['output_size_in_bytes'] / gib:.3f} GiB -> "
+              f"{per / gib:.3f} GiB, fits 80 GiB: {r['fits_h100_80gb']}; "
+              f"t_compute {terms['t_compute']:.4f} ms, t_memory "
+              f"{terms['t_memory']:.4f} ms, t_collective "
+              f"{terms['t_collective']:.4f} ms, dominant "
+              f"{max(terms, key=terms.get)}; flops/rank "
+              f"{r['cost_analysis']['flops']:.4e}; traced "
+              f"{r['traced']['step']} ({r['traced']['groups_traced']} of "
+              f"{r['traced']['groups']} groups) in {r['lower_s']:.2f} s",
+              flush=True)
+
+
+def memory_model_case(results: dict, what: str, cfg, cc, params, layout: str,
+                      B: int, Sq: int, gen) -> None:
+    """One step at mesh (1, 2): the dry run's total argument bytes equal the
+    same pack and pool built on the card, exactly; its temp bytes beside
+    max_memory_allocated() above the arguments during one real step (the
+    ratio is printed, not gated). Sq 1: a decode step at the served lengths;
+    Sq > 1: a prefill chunk from position 0."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.dryrun import (serve_pack, step_args,
+                                           trace_serve_step, tree_bytes)
+    from repro_torch.serving.steps import build_mixed_step
+
+    mesh = (1, 2)
+    t0 = time.time()
+    rec = trace_serve_step(cfg, mesh, layout, cc, B, Sq)
+    t_trace = time.time() - t0
+    pack = serve_pack(cfg, params, layout, mesh[1])
+    args = step_args(cfg, cc, mesh, B, Sq, "cuda")
+    kv, toks, pos, valid, bt = args
+    want = tree_bytes((pack,) + args)
+    got = rec["memory"]["argument_total_bytes"]
+    check(got == want, f"dryrun memory {what} {layout}: meta arguments {got} "
+                       f"B, the card's {want} B")
+    toks.random_(1, cfg.vocab_size, generator=gen)
+    if Sq == 1:                     # live rows at the served lengths
+        pos.copy_(torch.randint(64, 416, (1, B), generator=gen,
+                                device="cuda"))
+    else:                           # a prefill chunk from position 0
+        pos.zero_()
+    valid.fill_(Sq)
+    maxp = cc.max_pages_per_req     # each row on its own pages
+    bt.copy_((torch.arange(B * maxp, device="cuda").reshape(1, B, maxp)
+              % (cc.pages_ep - 1)) + 1)
+    step = build_mixed_step(cfg, mesh, layout, cc, B, Sq, device="cuda")
+    n0 = dispatch.calls("paged_attention")
+    step(pack, *args)                          # warm: workspaces, handles
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(pack, *args)
+    torch.cuda.synchronize()
+    card_temp = torch.cuda.max_memory_allocated() - base
+    n = dispatch.calls("paged_attention") - n0
+    check(n > 0, f"dryrun memory {what} {layout}: #1 never launched")
+    results["launches"]["paged_attention"] = (
+        results["launches"].get("paged_attention", 0) + n)
+    meta_temp = rec["memory"]["temp_total_bytes"]
+    print(f"dryrun memory {what} {layout} mesh (1, 2) B {B} Sq {Sq}: "
+          f"arguments {got} B on meta == {want} B on the card; temp "
+          f"{meta_temp} B on meta (both ranks), {card_temp} B above the "
+          f"arguments on the card in one step, card / meta "
+          f"{card_temp / max(meta_temp, 1):.3f}; traced in {t_trace:.2f} s; "
+          f"{card_line()}", flush=True)
+
+
+def dryrun_memory_model(results: dict) -> None:
+    """The dry run's memory model against the card (memory_model_case):
+    qwen3-4b's decode step at the dense phase's mesh (1, 2) and cache, and
+    a prefill chunk of qwen2-moe-a2.7b cut to MEMORY_MOE_LAYERS layers,
+    tp and ep. The dry run sizes a MoE step's expert buffers at the static
+    capacity (the shape repro lowers); the eager prefill trims them to the
+    step's largest load, so its card / meta ratio says how far that upper
+    bound sits above what the card allocates."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import cc_for
+    from repro_torch.models.registry import init_params
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    cfg, cc = dense_model()
+    params = init_params(cfg, SEED, device="cuda")
+    for layout in ("tp", "ep"):
+        memory_model_case(results, "qwen3-4b", cfg, cc, params, layout, 8, 1,
+                          gen)
+    del params
+    cfg = get_config("qwen2-moe-a2.7b").replace(num_layers=MEMORY_MOE_LAYERS)
+    params = init_params(cfg, SEED, device="cuda")
+    B, Sq = MEMORY_MOE_CHUNK
+    for layout in ("tp", "ep"):
+        cc = cc_for(cfg, 2, layout, B, Sq, page=16)
+        memory_model_case(results, f"qwen2-moe-a2.7b ({MEMORY_MOE_LAYERS} "
+                          f"layers)", cfg, cc, params, layout, B, Sq, gen)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dryrun_analytic() -> None:
+    """analytic_terms at each served model's own decode shape (B 8,
+    context 416, mesh (1, 2)), times G for the ranks stacked on the one
+    card, beside PERF.md's hand-derived bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import MeshShape, analytic_terms
+    S, B = SERVED_SHAPE
+    shape = ShapeSpec("served_decode", S, B, "decode")
+    mesh = MeshShape({"data": 1, "model": 2})
+    for arch, hand in SERVED_BOUNDS.items():
+        for layout in ("tp", "ep"):
+            a = analytic_terms(get_config(arch), shape, layout, mesh)
+            t = {k: a[k] * 1e3 * 2 for k in ("t_compute", "t_memory",
+                                             "t_collective")}
+            print(f"dryrun analytic {arch} {layout} B {B} context {S} mesh "
+                  f"(1, 2) x G 2 stacked: compute {t['t_compute']:.4f} ms, "
+                  f"memory {t['t_memory']:.4f} ms, collective "
+                  f"{t['t_collective']:.4f} ms -> "
+                  f"{max(t.values()):.4f} ms against PERF.md's {hand} ms "
+                  f"bound ({max(t.values()) / hand:.3f}x)", flush=True)
+
+
+def attn_decode_case(gen, cfg, *, G, B, kv_lo, kv_hi, dtype, page=16):
+    """One layer's attention weights (`dtype`, seeded), new tokens x (G, B,
+    1, D), a K/V pool (G, 2, pages, page * K * dh) with every row's pages
+    its own, the block table and the lengths."""
+    import torch
+    dev, bf = "cuda", dtype
+    D, H, K, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.dh
+
+    def w(*shape, fan):
+        return (torch.randn(shape, generator=gen, device=dev)
+                / fan ** 0.5).to(bf)
+    p = {"wq": w(D, H * dh, fan=D), "wk": w(D, K * dh, fan=D),
+         "wv": w(D, K * dh, fan=D), "wo": w(H * dh, D, fan=H * dh)}
+    if cfg.qk_norm:
+        p["q_norm"] = (1 + 0.1 * torch.randn(dh, generator=gen,
+                                             device=dev)).to(bf)
+        p["k_norm"] = (1 + 0.1 * torch.randn(dh, generator=gen,
+                                             device=dev)).to(bf)
+    maxp = -(-(kv_hi + 1) // page)
+    pages = B * maxp + 1
+    pool = torch.randn((G, 2, pages, page * K * dh), generator=gen,
+                       device=dev).to(bf)
+    bt = torch.stack([torch.randperm(pages - 1, generator=gen, device=dev)
+                      [:B * maxp].reshape(B, maxp) + 1 for _ in range(G)])
+    kv_lens = torch.randint(kv_lo, kv_hi + 1, (G, B), generator=gen,
+                            device=dev)
+    x = torch.randn((G, B, 1, D), generator=gen, device=dev).to(bf)
+    return p, x, pool, bt, kv_lens
+
+
+def attn_decode_check(results: dict, gen, cfg, what: str, *, dtype, tol,
+                      **kw) -> None:
+    """(a) the port's paged path on the card: the new K/V written into its
+    page, then kernel #1 over the block table, then wo, in `dtype`; (b)
+    `attn_decode` in fp32 over the cache kernel #4 (`gather_pages_rows`)
+    gathered from the same pool. Rows within `tol` of each other; #1 and
+    #4 launched. In f32 a planted fault follows: (a) again with the new
+    token left out of the lengths (kv_lens for kv_lens + 1), which moves
+    the output by about 1/kv and must fail `tol`; its launches are not
+    counted."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.kv_pack.ops import gather_pages_rows
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.models.attention import attn_decode, project_qkv
+    from repro_torch.models.common import matmul
+
+    p, x, pool, bt, kv_lens = attn_decode_case(gen, cfg, dtype=dtype, **kw)
+    G, B = kv_lens.shape
+    K, dh, H = cfg.num_kv_heads, cfg.dh, cfg.num_heads
+    pages, M = pool.shape[2], pool.shape[3]
+    page = M // (K * dh)
+    maxp = bt.shape[2]
+    c0 = {k: dispatch.calls(k) for k in ("paged_attention",
+                                         "gather_pages_rows")}
+    # (b) the cache as it stands, gathered by #4, then fp32 attn_decode
+    rows = gather_pages_rows(pool, bt.reshape(G, -1).to(torch.int32))
+    cache = rows.reshape(G, 2, B, maxp * page, K, dh).float()
+    p32 = {k: v.float() for k, v in p.items()}
+    ref = torch.stack([attn_decode(cfg, p32, x[g].float(), cache[g, 0],
+                                   cache[g, 1], kv_lens[g], kv_lens[g],
+                                   new_kv_out=False) for g in range(G)])
+    # (a) the paged path
+    q, k, v = zip(*[project_qkv(cfg, p, x[g], kv_lens[g][:, None])
+                    for g in range(G)])
+    q, k, v = torch.stack(q), torch.stack(k), torch.stack(v)
+    pv = pool.view(G, 2, pages, page, K, dh)
+    gi = torch.arange(G, device="cuda")[:, None]
+    pid = torch.gather(bt, 2, (kv_lens // page)[..., None])[..., 0]
+    pv[:, 0][gi, pid, kv_lens % page] = k[:, :, 0]
+    pv[:, 1][gi, pid, kv_lens % page] = v[:, :, 0]
+    i32 = torch.int32
+
+    def paged(new: int):
+        att = paged_attention(q, pv[:, 0], pv[:, 1], bt.to(i32),
+                              (kv_lens + new).to(i32),
+                              q_offset=kv_lens.to(i32))
+        return matmul(att.reshape(G, B, 1, H * dh), p["wo"])
+    got = paged(1)
+    torch.cuda.synchronize()
+    n = {k: dispatch.calls(k) - c0[k] for k in c0}
+    check(all(v > 0 for v in n.values()),
+          f"attn_decode {what}: launches {n}")
+    for k_, v_ in n.items():
+        results["launches"][k_] = results["launches"].get(k_, 0) + v_
+    err = row_rel_err(got, ref)
+    dmax = float((got.float() - ref).abs().max())
+    name = str(dtype).replace("torch.", "")
+    print(f"attn_decode {what}: G {G} x B {B} rows, kv {kw['kv_lo']}-"
+          f"{kw['kv_hi']}, heads {H}/{K} of {dh}, d_model {cfg.d_model}: "
+          f"#1 ({name} paged path) vs attn_decode (fp32 over #4's gather) "
+          f"row rel err {err:.3e} (tol {tol}), max |d| {dmax:.3e}; "
+          f"launches {n}", flush=True)
+    check(err <= tol, f"attn_decode {what} {name}: row rel err {err:.3e}")
+    if dtype == torch.float32:
+        bad = row_rel_err(paged(0), ref)
+        print(f"attn_decode {what}: planted fault, the new token left out "
+              f"(kv_lens for kv_lens + 1): row rel err {bad:.3e}, "
+              f"{'caught' if bad > tol else 'NOT caught'} (tol {tol})",
+              flush=True)
+        check(bad > tol, f"attn_decode {what}: the planted fault passes")
+
+
+def phase_dryrun(results: dict) -> None:
+    """The dry run (launch/dryrun.py, configs/shapes.py): its CLI on the
+    served models' production cells, its memory model against the card,
+    the analytic roofline at the served shapes, and `attn_decode` against
+    kernel #1 at qwen3-235b's and paligemma-3b's decode shapes. The CLI
+    runs on the host only: a whole run starts it with the train phase
+    (`results["dryrun_cli"]`), a run of this phase alone here."""
+    import torch
+
+    from repro_torch.configs import get_config
+    procs, t0 = results.pop("dryrun_cli", None) or (dryrun_start(),
+                                                    time.time())
+    try:
+        dryrun_memory_model(results)
+        dryrun_analytic()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+        for dtype, tol in ((torch.bfloat16, BF16_TOL),
+                           (torch.float32, ATTN_DECODE_F32_TOL)):
+            for arch in ("qwen3-235b-a22b", "paligemma-3b"):
+                attn_decode_check(results, gen, get_config(arch), arch,
+                                  dtype=dtype, tol=tol, G=2, B=4, kv_lo=64,
+                                  kv_hi=416)
+    except BaseException:
+        for p in procs:             # stop every process the phase started
+            p.kill()
+            p.communicate()
+        raise
+    dryrun_finish(procs, t0)
+
+
 def dh256_build_lines(text: str) -> list:
     """ptxas's register and spill lines of #1's head-dim-256
     instantiations (paligemma-3b), each named by its kernel and tile."""
@@ -6170,20 +6542,32 @@ def main() -> int:
               ("launch", lambda: phase_launch(results)),
               ("families", lambda: phase_families(results)),
               ("vlm", lambda: phase_vlm(results)),
-              ("train", lambda: phase_train(results))]
+              ("train", lambda: phase_train(results)),
+              ("dryrun", lambda: phase_dryrun(results))]
     results: dict = {"launches": {}}
     t_run = time.time()
-    for name, fn in phases:
-        if only is not None and name not in only:
-            continue
-        t0 = time.time()
-        fn()
-        # a phase's engine may sit in a reference cycle (a wrapped
-        # execute_switch): free it before the next phase allocates
-        gc.collect()
-        torch.cuda.empty_cache()
-        print(f"phase {name}: {time.time() - t0:.1f} s (run so far "
-              f"{time.time() - t_run:.1f} s)", flush=True)
+    took = {}
+    try:
+        for name, fn in phases:
+            if only is not None and name not in only:
+                continue
+            if name == "train" and (only is None or "dryrun" in only):
+                # the dry run's CLI needs no card: it runs beside this phase
+                results["dryrun_cli"] = (dryrun_start(), time.time())
+            t0 = time.time()
+            fn()
+            # a phase's engine may sit in a reference cycle (a wrapped
+            # execute_switch): free it before the next phase allocates
+            gc.collect()
+            torch.cuda.empty_cache()
+            took[name] = round(time.time() - t0, 1)
+            print(f"phase {name}: {took[name]} s (run so far "
+                  f"{time.time() - t_run:.1f} s)", flush=True)
+    finally:                    # a failed phase leaves no dry-run CLI behind
+        for p in results.pop("dryrun_cli", ([], 0))[0]:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
 
     if only is not None:
         print(f"chip_smoke: ran only {sorted(only)} (a partial run prints "
@@ -6203,6 +6587,7 @@ def main() -> int:
         rows.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    print(f"chip_smoke: phase seconds {took}", flush=True)
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all, the build "
           f"included", flush=True)
     print(card_line())

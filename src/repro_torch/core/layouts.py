@@ -1,6 +1,7 @@
 """Layouts: first-class `LayoutSpec` objects + the layout registry
 (port of repro/core/layouts.py; the GSPMD PartitionSpec rules have no
-counterpart in a single process and are not ported).
+counterpart in a single process and are not ported: the dry run's per-rank
+byte rule, launch/dryrun.py `rank_share`, reads the same sharding).
 
 A *layout* fixes, for every switchable tensor, which rank owns which slice.
 All layouts compute the same function over the same global state (paper
@@ -153,6 +154,10 @@ def get_layout(name) -> LayoutSpec:
             return register_layout(LayoutSpec(str(name), **fields))
     raise KeyError(f"unknown layout {name!r}; registered: "
                    f"{tuple(_REGISTRY)}") from None
+
+
+def registered_layouts() -> tuple[LayoutSpec, ...]:
+    return tuple(_REGISTRY.values())
 
 
 def world_of(layout, default_G: int) -> int:
@@ -413,3 +418,14 @@ def attn_rank_major(cfg: ModelConfig, ap: dict, G: int) -> dict:
             x = ap[n]
             out[n] = x[..., None, :].expand(*x.shape[:-1], G, x.shape[-1])
     return {k: v.contiguous() for k, v in out.items()}
+
+
+def expand_kv_heads(cfg: ModelConfig, x: torch.Tensor, G: int,
+                    head_axis: int = -2) -> torch.Tensor:
+    """(..., K, dh) -> (..., G*Kl, dh): materialize the rank-order KV head
+    blocks (replicated when K < G), matching attn_rank_major's layout. Used
+    for dense cross-KV caches that must split over the ranks."""
+    gi = group_info(cfg, G)
+    ha = head_axis % x.dim()
+    return torch.cat([x.narrow(ha, gi.kv_block(r), gi.kv_local)
+                      for r in range(G)], dim=ha)

@@ -60,3 +60,20 @@ def compressed_psum_int8(g: torch.Tensor, residual: torch.Tensor):
     s_all = ranks.all_gather(torch.stack(ss))[0]          # (G,)
     summed = torch.tensordot(s_all, q_all.float(), dims=([0], [0]))
     return summed.unsqueeze(0).expand(G, *summed.shape), torch.stack(res)
+
+
+def make_compressed_allreduce(G: int):
+    """The DP gradient all-reduce over G data groups stacked on dim 0 (where
+    repro jits a shard_map over the `data` axis): fn(g, res) with g and res
+    (G, ...), rank r's microbatch grad and residual at index r -> (the mean
+    of the int8-compressed grads, every rank holding it, (G, ...); the new
+    residuals (G, ...)), through `compressed_psum_int8` with its error
+    feedback."""
+    def fn(g: torch.Tensor, res: torch.Tensor):
+        if g.shape[0] != G or res.shape[0] != G:
+            raise ValueError(f"expected {G} stacked ranks, got "
+                             f"{g.shape[0]} and {res.shape[0]}")
+        out, new_res = compressed_psum_int8(g, res)
+        return out / G, new_res
+
+    return fn

@@ -12,10 +12,47 @@ same four calls.
 
 Results that every rank holds identically are returned as broadcast views
 (no copy), so callers must not write into them in place.
+
+`counting()` tallies the collectives called inside it, by repro's HLO
+names (`all-reduce`, `all-gather`, `all-to-all`, `reduce-scatter`) with
+each call's result bytes: the dry run's counterpart of parsing the
+collectives out of the lowered HLO (launch/dryrun.py). Outside it a call
+costs one list test.
 """
 from __future__ import annotations
 
+import contextlib
+from collections import Counter
+
 import torch
+
+_TALLIES: list = []
+
+
+@contextlib.contextmanager
+def counting():
+    """Yields a tally of the collectives called inside the block, keyed by
+    HLO collective name: `counts` (calls), `rank_calls` (the sum of the
+    ranks each call spans) and `total_bytes` (each call's result over all
+    its ranks). One entry per call: a layer loop's collectives count once a
+    layer."""
+    t = {k: Counter() for k in ("counts", "rank_calls", "total_bytes")}
+    _TALLIES.append(t)
+    try:
+        yield t
+    finally:
+        _TALLIES.remove(t)
+
+
+def _note(kind: str, out: torch.Tensor) -> torch.Tensor:
+    """Record one collective whose stacked result is `out` (G, ...)."""
+    if _TALLIES:
+        total = out.numel() * out.element_size()
+        for t in _TALLIES:
+            t["counts"][kind] += 1
+            t["rank_calls"][kind] += out.shape[0]
+            t["total_bytes"][kind] += total
+    return out
 
 
 def axis_index(G: int, device) -> torch.Tensor:
@@ -25,7 +62,7 @@ def axis_index(G: int, device) -> torch.Tensor:
 
 def psum(x: torch.Tensor) -> torch.Tensor:
     """x (G, ...) -> (G, ...): every rank holds the sum over ranks."""
-    return x.sum(0, keepdim=True).expand_as(x)
+    return _note("all-reduce", x.sum(0, keepdim=True).expand_as(x))
 
 
 def all_gather(x: torch.Tensor, axis: int = 0,
@@ -41,7 +78,7 @@ def all_gather(x: torch.Tensor, axis: int = 0,
         if axis != 0:
             raise NotImplementedError("untiled all_gather stacks at axis 0")
         full = x
-    return full.unsqueeze(0).expand(G, *full.shape)
+    return _note("all-gather", full.unsqueeze(0).expand(G, *full.shape))
 
 
 def all_to_all(x: torch.Tensor) -> torch.Tensor:
@@ -54,8 +91,8 @@ def all_to_all(x: torch.Tensor) -> torch.Tensor:
     if c * G != n:
         raise ValueError(f"all_to_all: dim 1 ({n}) not divisible by G={G}")
     send = x.reshape(G, G, c, *x.shape[2:])
-    return all_to_all_into(send, send.new_empty(send.shape)).reshape(
-        G, n, *x.shape[2:])
+    out = _exchange(send, send.new_empty(send.shape))
+    return _note("all-to-all", out.reshape(G, n, *x.shape[2:]))
 
 
 def all_to_all_into(send: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -65,6 +102,10 @@ def all_to_all_into(send: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     out (G_dst, G_src, *block), any strides (a permuted view of a
     preallocated buffer): out[r, s] = send[s, r]. The one copy is the
     stand-in for the collective."""
+    return _note("all-to-all", _exchange(send, out))
+
+
+def _exchange(send: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     if send.shape[:2] != out.shape[:2][::-1] or \
             send.shape[2:] != out.shape[2:]:
         raise ValueError(f"all_to_all_into: send {tuple(send.shape)} does "
@@ -79,4 +120,4 @@ def psum_scatter(x: torch.Tensor) -> torch.Tensor:
     c = n // G
     if c * G != n:
         raise ValueError(f"psum_scatter: dim 1 ({n}) not divisible by G={G}")
-    return x.sum(0).reshape(G, c, *x.shape[2:])
+    return _note("reduce-scatter", x.sum(0).reshape(G, c, *x.shape[2:]))

@@ -12,8 +12,18 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                    counts: torch.Tensor | None = None) -> torch.Tensor:
     """x (E,C,D) @ w (E,W,D) -> (E,C,W), fp32 accumulation per expert.
     counts (E,): optional per-expert load; rows at or past it are zero.
-    CPU tensors run the plain version, CUDA tensors the kernel."""
-    if dispatch.use_kernel(x, w):
+    CPU tensors run the plain version, CUDA tensors the kernel; `meta`
+    tensors neither (the dry run tallies 2 E C W D operations: every row
+    filled)."""
+    kind = dispatch.device_kind(x, w)
+    if kind == "meta":
+        E, C, D = x.shape
+        W = w.shape[1]
+        return dispatch.stand_in(
+            "grouped_matmul", (E, C, W), x.dtype, flops=2 * E * C * W * D,
+            nbytes=dispatch.nbytes(x, w) + E * C * W * x.element_size()
+            + (4 * E if counts is not None else 0))
+    if kind == "cuda":
         if counts is not None:
             counts = counts.to(torch.int32).contiguous()
         return grouped_matmul_cuda(x.contiguous(), w.contiguous(), counts)

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
@@ -14,3 +15,13 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
         rows = torch.arange(x.shape[1], device=x.device)
         xf = xf * (rows[None, :] < counts[:, None]).float()[..., None]
     return torch.einsum("ecd,ewd->ecw", xf, w.float()).to(x.dtype)
+
+
+def grouped_ffn_ref(cfg, w13: torch.Tensor, w2: torch.Tensor,
+                    xd: torch.Tensor) -> torch.Tensor:
+    """Full grouped SwiGLU FFN: xd (E, C, D) -> (E, C, D)."""
+    h = grouped_matmul_ref(xd, w13).float()
+    hg, hu = h.chunk(2, dim=-1)
+    h = (F.silu(hg) * hu).to(xd.dtype)
+    # w2 (E, D, W2): contract over W2
+    return torch.einsum("ecw,edw->ecd", h.float(), w2.float()).to(xd.dtype)

@@ -2,7 +2,8 @@
 
 Takes repro's per-rank shapes, or the same with a leading stacked rank dim
 G on every argument. CPU tensors run the plain version; CUDA tensors the
-kernel, all ranks in one launch.
+kernel, all ranks in one launch; `meta` tensors neither (the dry run: the
+worst case's work is tallied, `worst_case_work`).
 """
 from __future__ import annotations
 
@@ -11,6 +12,36 @@ import torch
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+
+def _sum_min(a: int, b: int, cap: int) -> int:
+    """sum of min(t, cap) for t in [a, b]."""
+    if b < a:
+        return 0
+    c = min(b, cap - 1)
+    low = (a + c) * (c - a + 1) // 2 if c >= a else 0
+    return low + cap * max(0, b - max(a, cap) + 1)
+
+
+def worst_case_work(G: int, B: int, Sq: int, H: int, K: int, dh: int,
+                    maxp: int, page: int, window: int, q_bytes: int,
+                    kv_bytes: int) -> tuple[int, int]:
+    """(flops, bytes) of one call with every row's kv_len at maxp * page
+    (every block-table page live) and its queries at the end (q_offset =
+    kv_len - Sq): `chip_smoke.attention_work`'s count on those inputs —
+    the live K/V positions read once per KV head, q read and out written
+    once, the int32 block table and lengths read, 4 H dh operations per
+    visible position of each query. q_bytes / kv_bytes: element sizes."""
+    kv = maxp * page
+    qo = max(kv - Sq, 0)
+    cap = min(kv, window) if window else kv
+    seen = _sum_min(qo + 1, qo + Sq, cap)          # positions the queries see
+    lo = max(0, qo - window + 1) if window else 0
+    span = min(kv, qo + Sq) - lo                   # positions read per row
+    nbytes = (2 * G * B * Sq * H * dh * q_bytes
+              + G * B * 2 * span * K * dh * kv_bytes
+              + 4 * (G * B * maxp + 2 * G * B))
+    return 4 * H * dh * seen * G * B, nbytes
 
 
 def paged_attention(q, k_pool, v_pool, block_table, kv_lens, *, q_offset,
@@ -22,8 +53,17 @@ def paged_attention(q, k_pool, v_pool, block_table, kv_lens, *, q_offset,
         q, k_pool, v_pool = q[None], k_pool[None], v_pool[None]
         block_table, kv_lens, q_offset = (block_table[None], kv_lens[None],
                                           q_offset[None])
-    if dispatch.use_kernel(q, k_pool, v_pool, block_table, kv_lens,
-                           q_offset):
+    kind = dispatch.device_kind(q, k_pool, v_pool, block_table, kv_lens,
+                                q_offset)
+    if kind == "meta":
+        G, B, Sq, H, dh = q.shape
+        flops, nb = worst_case_work(
+            G, B, Sq, H, k_pool.shape[3], dh, block_table.shape[2],
+            k_pool.shape[2], window, q.element_size(),
+            k_pool.element_size())
+        out = dispatch.stand_in("paged_attention", q.shape, q.dtype,
+                                flops=flops, nbytes=nb)
+    elif kind == "cuda":
         i32 = torch.int32
         out = paged_attention_cuda(
             q.contiguous(), k_pool, v_pool,

@@ -2,9 +2,10 @@
 (port of repro/models/attention.py).
 
 Global math only. `attn_forward` handles the reference forward and chunked
-prefill (fresh K/V, optionally returned for a cache fill). repro's
-`attn_decode` has no caller on its serve path and is not ported (ROADMAP
-A6): the port's serve steps attend through the paged-attention kernel.
+prefill (fresh K/V, optionally returned for a cache fill); `attn_decode`
+one decode token against a gathered dense cache (the serve steps attend
+through the paged-attention kernel instead; `attn_decode` is the dense
+oracle that kernel is held to).
 """
 from __future__ import annotations
 
@@ -74,4 +75,31 @@ def attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
     out = matmul(out.reshape(B, S, cfg.num_heads * cfg.dh), p["wo"])
     if return_kv:
         return out, (k, v)
+    return out
+
+
+def attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                k_cache: torch.Tensor, v_cache: torch.Tensor,
+                positions: torch.Tensor, kv_lens: torch.Tensor, *,
+                rope: bool = True, new_kv_out: bool = True):
+    """Single-token decode against a gathered dense cache view.
+
+    x (B,1,D); k_cache/v_cache (B, S_max, K, dh) with valid prefix kv_lens
+    (B,). The *new* token's K/V is put at position kv_lens[b] (functionally:
+    the caches are not written). Returns out (B,1,D), (k_new, v_new) each
+    (B,1,K,dh)."""
+    B = x.shape[0]
+    q, k_new, v_new = project_qkv(cfg, p, x, positions[:, None], rope)
+    idx = kv_lens.to(x.device)[:, None, None, None]
+    pos = torch.arange(k_cache.shape[1], device=x.device)[None, :, None, None]
+    put = pos == idx
+    k_all = torch.where(put, k_new, k_cache.to(k_new.dtype))
+    v_all = torch.where(put, v_new, v_cache.to(v_new.dtype))
+    # no window here: for SWA models the caller hands over a windowed view
+    # of the cache, so kv_lens describes validity fully
+    out = flash_attention(q, k_all, v_all, causal=False, window=0,
+                          q_offset=0, kv_len=kv_lens + 1)
+    out = matmul(out.reshape(B, 1, cfg.num_heads * cfg.dh), p["wo"])
+    if new_kv_out:
+        return out, (k_new, v_new)
     return out

@@ -268,13 +268,16 @@ def index_tree(tree, i: int):
 
 def dense_init(gen: torch.Generator, shape, in_dim: int, dtype: torch.dtype,
                device) -> torch.Tensor:
-    """N(0, 1/in_dim) weights, drawn in fp32 and cast (repro's scale).
+    """N(0, 1/in_dim) weights, drawn in fp32 and cast (repro's scale); on
+    `meta`, the empty tensor.
 
     Stacked tensors are drawn one leading slice at a time, so the fp32
     scratch never exceeds one slice of a full-width expert tensor."""
     std = 1.0 / math.sqrt(in_dim)
     shape = tuple(shape)
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":          # the dry run: no values to draw
+        return out
     slices = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
     for s in slices:
         s.copy_(torch.randn(s.shape, generator=gen, dtype=torch.float32,

@@ -325,8 +325,9 @@ def _buffer_rows(load: torch.Tensor, cap: int, trim: bool) -> int:
     multiple of 4, never above `cap` — a smaller buffer for wide (prefill
     chunk) dispatches, at the price of one host read per call. Every entry
     repro keeps sits below the largest load, so the rows that carry tokens
-    are the same either way."""
-    if not trim:
+    are the same either way. On `meta` (the dry run) it is `cap`, the
+    shape repro's lowering sees: no value exists to read."""
+    if not trim or load.device.type == "meta":
         return cap
     c = int(load.max()) if load.numel() else 0
     return min(cap, max(4, -(-c // 4) * 4))

@@ -37,11 +37,17 @@ def _check_family(cfg: ModelConfig) -> None:
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device="cuda") -> dict:
-    """Global-layout params of a model of a ported family, on `device`."""
+    """Global-layout params of a model of a ported family, on `device`
+    (`meta`: shapes and dtypes only, for the dry run)."""
     _check_family(cfg)
     dev = require_device(device)
+    init = _INIT.get(cfg.family, init_lm)
+    if dev.type == "meta":
+        # torch has no meta generator; a CPU one draws nothing here
+        with torch.device(dev):
+            return init(cfg, torch.Generator().manual_seed(seed), device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return _INIT.get(cfg.family, init_lm)(cfg, gen, device=dev)
+    return init(cfg, gen, device=dev)
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,

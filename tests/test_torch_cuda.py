@@ -942,3 +942,76 @@ def test_train_step_on_card_matches_cpu(card, name):
         assert float(d.max()) <= 2 * 1e-3
         assert float((d > 1e-5 + 1e-5 * b.detach().abs()).float().mean()) \
             <= 1e-3
+
+
+@pytest.mark.parametrize("H,K,dh", [(8, 2, 128), (8, 1, 256)])
+def test_attn_decode_matches_paged_kernel(card, H, K, dh):
+    """attn_decode in fp32 over the cache kernel #4 gathers == the paged
+    path through kernel #1 in bf16 (within the bf16 tolerance), and #1 and
+    #4 launch: chip_smoke.py's dryrun phase at small widths."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.kv_pack.ops import gather_pages_rows
+    from repro_torch.models.attention import attn_decode, project_qkv
+    from repro_torch.models.common import matmul
+    cfg = get_config("qwen3-235b-a22b").reduced(
+        num_heads=H, num_kv_heads=K, head_dim=dh, d_model=256,
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=card).manual_seed(H + K + dh)
+    G, B, page, maxp, D = 2, 3, 16, 4, cfg.d_model
+    bf = torch.bfloat16
+    p = {n: (torch.randn(s, generator=gen, device=card) / s[0] ** 0.5).to(bf)
+         for n, s in (("wq", (D, H * dh)), ("wk", (D, K * dh)),
+                      ("wv", (D, K * dh)), ("wo", (H * dh, D)))}
+    p["q_norm"] = torch.ones(dh, dtype=bf, device=card)
+    p["k_norm"] = torch.ones(dh, dtype=bf, device=card)
+    pages = B * maxp + 1
+    pool = torch.randn((G, 2, pages, page * K * dh), generator=gen,
+                       device=card).to(bf)
+    bt = torch.stack([torch.randperm(pages - 1, generator=gen, device=card)
+                      [:B * maxp].reshape(B, maxp) + 1 for _ in range(G)])
+    kv_lens = torch.randint(1, maxp * page - 1, (G, B), generator=gen,
+                            device=card)
+    x = torch.randn((G, B, 1, D), generator=gen, device=card).to(bf)
+    dispatch.reset_counts()
+    cache = gather_pages_rows(pool, bt.reshape(G, -1).int()).reshape(
+        G, 2, B, maxp * page, K, dh).float()
+    p32 = {k: v.float() for k, v in p.items()}
+    ref = torch.stack([attn_decode(cfg, p32, x[g].float(), cache[g, 0],
+                                   cache[g, 1], kv_lens[g], kv_lens[g],
+                                   new_kv_out=False) for g in range(G)])
+    q, k, v = (torch.stack(t) for t in zip(*[
+        project_qkv(cfg, p, x[g], kv_lens[g][:, None]) for g in range(G)]))
+    pv = pool.view(G, 2, pages, page, K, dh)
+    gi = torch.arange(G, device=card)[:, None]
+    pid = torch.gather(bt, 2, (kv_lens // page)[..., None])[..., 0]
+    pv[:, 0][gi, pid, kv_lens % page] = k[:, :, 0]
+    pv[:, 1][gi, pid, kv_lens % page] = v[:, :, 0]
+    att = paged_attention(q, pv[:, 0], pv[:, 1], bt.int(),
+                          (kv_lens + 1).int(), q_offset=kv_lens.int())
+    got = matmul(att.reshape(G, B, 1, H * dh), p["wo"])
+    torch.cuda.synchronize()
+    assert dispatch.calls("paged_attention") == 1
+    assert dispatch.calls("gather_pages_rows") == 1
+    torch.testing.assert_close(got.float(), ref, rtol=2e-2, atol=2e-2)
+
+
+def test_meta_calls_on_a_card_machine_launch_nothing(card):
+    """The dry run on a machine with a card: a `meta` serve step launches
+    no kernel, and its argument bytes equal the same pack and pool built on
+    the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import (serve_pack, step_args,
+                                           trace_serve_step, tree_bytes)
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.kvcache import CacheConfig
+    cfg = get_config("qwen3-4b").reduced(
+        num_layers=2, d_model=128, num_heads=8, num_kv_heads=2, head_dim=64,
+        d_ff=256, vocab_size=512)
+    cc = CacheConfig(page_size=16, pages_ep=16, max_pages_per_req=4)
+    dispatch.reset_counts()
+    rec = trace_serve_step(cfg, (1, 2), "tp", cc, 4, 1)
+    assert sum(dispatch.COUNTS.values()) == 0
+    pack = serve_pack(cfg, init_params(cfg, 0, device=card), "tp", 2)
+    args = step_args(cfg, cc, (1, 2), 4, 1, card)
+    assert tree_bytes((pack,) + args) == \
+        rec["memory"]["argument_total_bytes"]

@@ -37,7 +37,8 @@ def test_port_imports_no_jax_or_repro():
         "          'repro_torch.distributed.checkpoint',\n"
         "          'repro_torch.distributed.compression',\n"
         "          'repro_torch.distributed.collectives',\n"
-        "          'repro_torch.launch.train'):\n"
+        "          'repro_torch.launch.train', 'repro_torch.configs.shapes',\n"
+        "          'repro_torch.launch.dryrun'):\n"
         "    assert m in sys.modules, m\n"
         "n = sum(1 for m in sys.modules if m.startswith('repro_torch.'))\n"
         "print('ok', n)\n")
@@ -47,7 +48,7 @@ def test_port_imports_no_jax_or_repro():
                          text=True, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
-    assert int(out.stdout.split()[1]) >= 79     # every module was imported
+    assert int(out.stdout.split()[1]) >= 81     # every module was imported
 
 
 def test_chip_smoke_imports_no_jax_or_repro():
@@ -171,5 +172,5 @@ def test_kernel_wrappers_do_not_fall_back():
                              torch.ones(1, 1, dtype=i32),
                              torch.zeros(1, 1, dtype=i32))
     with pytest.raises(ValueError, match="devices"):
-        dispatch.use_kernel(x, torch.zeros(1, device="meta"))
-    assert dispatch.use_kernel(x) is False
+        dispatch.device_kind(x, torch.zeros(1, device="meta"))
+    assert dispatch.device_kind(x) == "cpu"
