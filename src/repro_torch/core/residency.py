@@ -34,6 +34,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import dispatch
 
 
@@ -46,10 +47,14 @@ class GraphStep:
     outputs: object                 # static outputs, kept referenced
     launches: dict                  # kernel op -> launches captured
     replays: int = 0
+    # captured with tracing off: no device counter inside
+    uncounted: bool = False
 
     def __call__(self):
         self.graph.replay()
         self.replays += 1
+        if self.uncounted:
+            tracing.replayed_uncounted()
         return self.outputs
 
 
@@ -101,7 +106,8 @@ class ResidentRuntime:
         with torch.cuda.graph(graph, pool=self._pool):
             out = fn()
         launches = dict(Counter(dispatch.COUNTS) - before)
-        return GraphStep(graph, fn, out, launches)
+        return GraphStep(graph, fn, out, launches,
+                         uncounted=not tracing.active())
 
     def mark_warm(self) -> None:
         """Warmup is over: any build from now on counts as late."""

@@ -54,6 +54,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.layouts import EP, TP, get_layout, group_info
 from repro_torch.core.switch import (apply_assignments,
                                      expert_pair_dst_shapes,
@@ -93,7 +94,7 @@ def _layer_chunks(cfg: ModelConfig, Lk: int, chunk_layers: int) -> list:
 def _sync(device: torch.device) -> None:
     """Wait for the device where one is timed (see module docstring)."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        tracing.host_read(torch.cuda.synchronize, device)
 
 
 # Fixed plan width of the commit-time dirty-page delta pass; wider dirty
@@ -314,6 +315,11 @@ class SwitchExecutor:
             new_caches = [PrefixCache.rebuild(new_alloc[d], cache_moves[d])
                           for d in range(self.Dd)]
         total = time.perf_counter() - t0
+        # traced: the phases as these timers took them
+        tracing.record("switch.plan", t0, t0 + t_plan)
+        tracing.record("switch.weights", t1, t1 + t_w)
+        tracing.record("switch.kv", t2, t2 + t_kv)
+        tracing.record("switch.commit", t2 + t_kv, t0 + total)
         stats = SwitchStats(direction=f"{src}_to_{dst}", total_s=total,
                             pause_s=total, plan_s=t_plan, weights_s=t_w,
                             kv_s=t_kv, kv_pages=int(vm.sum()), chunks=1,
@@ -343,6 +349,7 @@ class SwitchExecutor:
         else:
             kv_dst.zero_()
         kv_pages = int(plan_arrays[2].sum())
+        tracing.record("switch.plan", t0, time.perf_counter())
         self.session = SwitchSession(
             src=src, dst=dst, direction=f"{src}_to_{dst}", kv_dir=kv_dir,
             t_start=t0, plan_arrays=self._to_device(plan_arrays),
@@ -371,6 +378,7 @@ class SwitchExecutor:
             self._reshard(s.src, s.dst, experts, s.experts_dst, w_lo, w_hi)
             _sync(self.device)
             s.weights_s += time.perf_counter() - t
+            tracing.record("switch.weights", t, time.perf_counter())
         if s.kv_dst is not None and kv_hi > kv_lo:
             t = time.perf_counter()
             mfn = make_migrate_kv_chunk(self.cfg, self.cc, self.mesh,
@@ -378,6 +386,7 @@ class SwitchExecutor:
             mfn(kv_flat, s.kv_dst, *s.plan_arrays)
             _sync(self.device)
             s.kv_s += time.perf_counter() - t
+            tracing.record("switch.kv", t, time.perf_counter())
         s.next_chunk += 1
         return not s.done
 
@@ -521,6 +530,7 @@ class SwitchExecutor:
                 for d in range(self.Dd)]
         _sync(self.device)
         now = time.perf_counter()
+        tracing.record("switch.commit", t_pause0, now)
         # pause = the synchronous plan/staging phase in start() plus this
         # commit phase, measured as monolithic() measures its pause
         stats = SwitchStats(
@@ -627,6 +637,7 @@ class CrossWorldSwitcher:
             kv_host=kv_host if self.Lk > 0 else None,
             kv_pages=sum(len(m) for m in moves), live_requests=len(live),
             plan_pause_s=time.perf_counter() - t0, caches=caches)
+        tracing.record("switch.plan", t0, t0 + self.session.plan_pause_s)
         return self.session
 
     def _index(self, pages: list) -> torch.Tensor:
@@ -677,12 +688,12 @@ class CrossWorldSwitcher:
             idx = self._index(sps)
             if src_s.kv_per_rank:
                 pool = kv_flat[d, spool].view(L * 2, pages, M)[2 * lo:2 * hi]
-                out = gather_pages_rows(pool, idx).cpu()[:, :n]
+                out = tracing.host_read(gather_pages_rows(pool, idx).cpu)[:, :n]
                 data = out.reshape(Lc, 2, n, page, Ks, dh)
             else:
                 rows = kv_flat[d].view(s.G_src, L * 2, pages, M)
                 pool = rows[::gs.kv_rep, 2 * lo:2 * hi]
-                out = gather_pages_rows(pool, idx).cpu()[:, :, :n]
+                out = tracing.host_read(gather_pages_rows(pool, idx).cpu)[:, :, :n]
                 data = out.reshape(-1, Lc, 2, n, page, Ks, dh).movedim(
                     0, 4).reshape(Lc, 2, n, page, -1, dh)
             dparr = torch.tensor(dps, dtype=torch.long)
@@ -714,11 +725,13 @@ class CrossWorldSwitcher:
                 s.experts_host["w2"][li:li + 1].copy_(w2)
                 del w13, w2
             s.weights_s += time.perf_counter() - t
+            tracing.record("switch.weights", t, time.perf_counter())
         if s.kv_host is not None and kv_hi > kv_lo:
             t = time.perf_counter()
             for d in range(self.Dd):
                 self._stage_kv_chunk(d, kv_flat, s, s.moves[d], kv_lo, kv_hi)
             s.kv_s += time.perf_counter() - t
+            tracing.record("switch.kv", t, time.perf_counter())
         s.next_chunk += 1
         return not s.done
 
@@ -808,6 +821,7 @@ class CrossWorldSwitcher:
             new_caches = [PrefixCache(s.new_alloc[d])
                           for d in range(self.Dd)]
         now = time.perf_counter()
+        tracing.record("switch.commit", t_pause0, now)
         stats = SwitchStats(
             direction=s.direction, total_s=now - s.t_start,
             pause_s=s.plan_pause_s + (now - t_pause0),

@@ -36,6 +36,11 @@
 // f32 design (gmm_kernel, unchanged from the first port): a shared-memory
 // tiled IEEE fp32 FMA GEMM (never TF32), grid (W tiles, C tiles, E), 64 x 64
 // tile per block of 256 threads. The path is chosen by dtype alone.
+//
+// Optional work (2,) double, the tracer's counter (null when tracing is
+// off): each expert with a routed row adds its work once, from the block
+// of its first W tile and first C tile: bytes += its weights plus each
+// routed row read and written, flops += 2 * rows * D * W.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -45,6 +50,12 @@
 #include <cstdint>
 
 namespace {
+
+__device__ void add_work(double* work, int rows, int D, int W, int elem) {
+  if (rows <= 0) return;
+  atomicAdd(&work[0], (double)W * D * elem + (double)rows * (D + W) * elem);
+  atomicAdd(&work[1], 2.0 * rows * D * W);
+}
 
 // ---------------------------------------------------------------------------
 // f32: IEEE fp32 FMA tiled GEMM
@@ -57,8 +68,8 @@ constexpr int kBK = 32;   // depth per shared-memory stage
 
 __global__ void __launch_bounds__(kThreads)
 gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
-           const int* __restrict__ counts, float* __restrict__ out, int C,
-           int D, int W) {
+           const int* __restrict__ counts, float* __restrict__ out,
+           double* __restrict__ work, int C, int D, int W) {
   __shared__ float xs[kBK][kBM + 1];
   __shared__ float ws[kBK][kBN + 1];
   const int tid = threadIdx.x;
@@ -78,6 +89,8 @@ gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   // rows at or past this expert's load are zero: skip their depth loop
   const int c_end = counts ? min(C, counts[e]) : C;
+  if (work != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0)
+    add_work(work, c_end, D, W, sizeof(float));
   const int k_end = c0 < c_end ? D : 0;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
 #pragma unroll
@@ -117,12 +130,13 @@ gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 int launch_f32(const void* x, const void* w, const int* counts, void* out,
-               int E, int C, int D, int W, cudaStream_t stream) {
+               double* work, int E, int C, int D, int W,
+               cudaStream_t stream) {
   if ((C + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((W + kBN - 1) / kBN, (C + kBM - 1) / kBM, E);
   gmm_kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), counts,
-      static_cast<float*>(out), C, D, W);
+      static_cast<float*>(out), work, C, D, W);
   return (int)cudaGetLastError();
 }
 
@@ -397,7 +411,8 @@ __global__ void __launch_bounds__(kWThreads, GmmCfg<BN>::kMinBlocks)
 gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w,
                  const __grid_constant__ CUtensorMap tm_x,
                  const int* __restrict__ counts,
-                 __nv_bfloat16* __restrict__ out, int C, int D, int W) {
+                 __nv_bfloat16* __restrict__ out,
+                 double* __restrict__ work, int C, int D, int W) {
   using Cfg = GmmCfg<BN>;
   constexpr int S = Cfg::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -409,6 +424,8 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w,
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * BN, w0 = blockIdx.y * kWM, e = blockIdx.z;
   const int cnt = counts ? min(C, counts[e]) : C;
+  if (work != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0)
+    add_work(work, cnt, D, W, sizeof(__nv_bfloat16));
   __nv_bfloat16* oe = out + (size_t)e * C * W;
   const int c_hi = min(C, n0 + BN), w_hi = min(W, w0 + kWM);
   if (n0 >= cnt) {          // no routed row in this pass: zeros, no reads
@@ -545,7 +562,8 @@ bool make_map(CUtensorMap* map, const void* base, int inner, int rows, int E,
 
 template <int BN>
 int launch_bf16_n(const void* x, const void* w, const int* counts, void* out,
-                  int E, int C, int D, int W, cudaStream_t stream) {
+                  double* work, int E, int C, int D, int W,
+                  cudaStream_t stream) {
   using Cfg = GmmCfg<BN>;
   CUtensorMap tm_w, tm_x;
   if (!make_map(&tm_w, w, D, W, E, kWM) || !make_map(&tm_x, x, D, C, E, BN))
@@ -557,38 +575,39 @@ int launch_bf16_n(const void* x, const void* w, const int* counts, void* out,
   dim3 grid((C + BN - 1) / BN, (W + kWM - 1) / kWM, E);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   kern<<<grid, kWThreads, Cfg::kSmem, stream>>>(
-      tm_w, tm_x, counts, static_cast<__nv_bfloat16*>(out), C, D, W);
+      tm_w, tm_x, counts, static_cast<__nv_bfloat16*>(out), work, C, D, W);
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(const void* x, const void* w, const int* counts, void* out,
-                int E, int C, int D, int W, cudaStream_t s) {
+                double* work, int E, int C, int D, int W, cudaStream_t s) {
   // TMA: 16-byte aligned bases and row strides
   if (D % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  if (C <= 8) return launch_bf16_n<8>(x, w, counts, out, E, C, D, W, s);
-  if (C <= 16) return launch_bf16_n<16>(x, w, counts, out, E, C, D, W, s);
-  if (C <= 32) return launch_bf16_n<32>(x, w, counts, out, E, C, D, W, s);
-  if (C <= 64) return launch_bf16_n<64>(x, w, counts, out, E, C, D, W, s);
-  if (C <= 128) return launch_bf16_n<128>(x, w, counts, out, E, C, D, W, s);
-  return launch_bf16_n<256>(x, w, counts, out, E, C, D, W, s);
+  if (C <= 8) return launch_bf16_n<8>(x, w, counts, out, work, E, C, D, W, s);
+  if (C <= 16) return launch_bf16_n<16>(x, w, counts, out, work, E, C, D, W, s);
+  if (C <= 32) return launch_bf16_n<32>(x, w, counts, out, work, E, C, D, W, s);
+  if (C <= 64) return launch_bf16_n<64>(x, w, counts, out, work, E, C, D, W, s);
+  if (C <= 128) return launch_bf16_n<128>(x, w, counts, out, work, E, C, D, W, s);
+  return launch_bf16_n<256>(x, w, counts, out, work, E, C, D, W, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (fp32 FMA path), 1 = bfloat16 (wgmma path); x, w and
-// out share it; counts may be null. Returns the cudaError_t of the launch
-// (0 = success).
+// out share it; counts and work may be null. Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int grouped_matmul_launch(const void* x, const void* w,
-                                     const void* counts, void* out, int E,
-                                     int C, int D, int W, int dtype,
-                                     void* stream) {
+                                     const void* counts, void* out,
+                                     void* work, int E, int C, int D, int W,
+                                     int dtype, void* stream) {
   const int* cnt = static_cast<const int*>(counts);
+  double* wk = static_cast<double*>(work);
   if (E <= 0 || C <= 0 || D <= 0 || W <= 0 || E > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(x, w, cnt, out, E, C, D, W, s);
-  if (dtype == 1) return launch_bf16(x, w, cnt, out, E, C, D, W, s);
+  if (dtype == 0) return launch_f32(x, w, cnt, out, wk, E, C, D, W, s);
+  if (dtype == 1) return launch_bf16(x, w, cnt, out, wk, E, C, D, W, s);
   return (int)cudaErrorInvalidValue;
 }

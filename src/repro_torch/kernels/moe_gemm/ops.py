@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.moe_gemm.kernel import grouped_matmul_cuda
 from repro_torch.kernels.moe_gemm.ref import grouped_matmul_ref
@@ -14,7 +15,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     counts (E,): optional per-expert load; rows at or past it are zero.
     CPU tensors run the plain version, CUDA tensors the kernel; `meta`
     tensors neither (the dry run tallies 2 E C W D operations: every row
-    filled)."""
+    filled). Traced (repro_torch.tracing), the call's work goes to the
+    counters `gmm.bytes` / `gmm.flops`: the kernel adds it on the device
+    (inside a captured graph too), the plain version counts the same."""
     kind = dispatch.device_kind(x, w)
     if kind == "meta":
         E, C, D = x.shape
@@ -23,8 +26,13 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
             "grouped_matmul", (E, C, W), x.dtype, flops=2 * E * C * W * D,
             nbytes=dispatch.nbytes(x, w) + E * C * W * x.element_size()
             + (4 * E if counts is not None else 0))
+    traced = tracing.active()
     if kind == "cuda":
         if counts is not None:
             counts = counts.to(torch.int32).contiguous()
-        return grouped_matmul_cuda(x.contiguous(), w.contiguous(), counts)
+        return grouped_matmul_cuda(
+            x.contiguous(), w.contiguous(), counts,
+            tracing.gmm_work(x.device) if traced else None)
+    if traced:
+        tracing.count_gmm(x, w, counts)
     return grouped_matmul_ref(x, w, counts)

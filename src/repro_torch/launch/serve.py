@@ -25,6 +25,9 @@ What the port changes, and why:
   * ``--reduced`` is on by default as in repro, where it can never be
     turned off (``store_true`` with ``default=True``); here ``--no-reduced``
     serves the published config.
+  * ``--trace-out PATH`` (the port's own): trace the engine
+    (repro_torch/tracing.py) and write the trace as Chrome-trace JSON to
+    PATH at shutdown.
 ``calibrate_threshold`` sets T_high unless ``--t-high`` is given; for the
 H100 cost model at G=2 it returns its search cap, so runs on a card pass
 ``--t-high``.
@@ -63,17 +66,6 @@ import json
 def main(argv=None) -> dict | None:
     """Parse `argv` (sys.argv by default), serve, print the summary JSON
     and return it (None in HTTP mode, which serves until stopped)."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.layouts import EP, TP, get_layout
-    from repro_torch.core.policy import PolicyConfig, calibrate_threshold
-    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
-    from repro_torch.serving.frontend import AsyncEngine
-    from repro_torch.serving.kvcache import CacheConfig
-    from repro_torch.serving.workloads import (BurstySpec, QosMixSpec,
-                                               RolloutSpec, bursty_trace,
-                                               qos_mixed_trace, replay,
-                                               rollout_batch)
-
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mixtral-8x7b")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
@@ -138,7 +130,41 @@ def main(argv=None) -> dict | None:
                          ", GET /v1/metrics; 0 = pick a free port)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-steps", type=int, default=5000)
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="trace the engine (repro_torch/tracing.py: a span "
+                         "per iteration and its scheduling, staging, "
+                         "launch and host-read phases, each request's "
+                         "queue wait, each switch and its phases, the "
+                         "grouped GEMM's counted bytes and FLOPs) and "
+                         "write it to PATH as Chrome-trace JSON at "
+                         "shutdown (chrome://tracing, Perfetto); off by "
+                         "default, and then free")
     args = ap.parse_args(argv)
+    tracer = None
+    if args.trace_out:
+        # before the engine: the decode graphs captured at warm-up carry
+        # the device counters only if tracing is on then
+        from repro_torch import tracing
+        tracer = tracing.enable()
+    try:
+        return _serve(args)
+    finally:
+        if tracer is not None:
+            tracing.disable()
+            tracer.write_chrome(args.trace_out)
+
+
+def _serve(args) -> dict | None:
+    from repro_torch.configs import get_config
+    from repro_torch.core.layouts import EP, TP, get_layout
+    from repro_torch.core.policy import PolicyConfig, calibrate_threshold
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.frontend import AsyncEngine
+    from repro_torch.serving.kvcache import CacheConfig
+    from repro_torch.serving.workloads import (BurstySpec, QosMixSpec,
+                                               RolloutSpec, bursty_trace,
+                                               qos_mixed_trace, replay,
+                                               rollout_batch)
 
     dd, g = (int(x) for x in args.mesh.split("x"))
     cfg = get_config(args.arch)

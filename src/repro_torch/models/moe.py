@@ -34,6 +34,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.distributed import ranks
 from repro_torch.kernels.moe_gemm.ops import grouped_matmul
 from repro_torch.models.common import ModelConfig, dense_init, matmul
@@ -329,7 +330,7 @@ def _buffer_rows(load: torch.Tensor, cap: int, trim: bool) -> int:
     shape repro's lowering sees: no value exists to read."""
     if not trim or load.device.type == "meta":
         return cap
-    c = int(load.max()) if load.numel() else 0
+    c = int(tracing.host_read(load.max().item)) if load.numel() else 0
     return min(cap, max(4, -(-c // 4) * 4))
 
 

@@ -52,6 +52,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 
+from repro_torch import tracing
 from repro_torch.core.layouts import EP, TP, LayoutSpec, get_layout, world_of
 from repro_torch.core.policy import PolicyConfig, SwitchCoordinator
 from repro_torch.distributed.elastic import fail_rank
@@ -174,6 +175,7 @@ class MoebiusEngine:
         self.metrics = ServeMetrics()
         self.switch_records: list[SwitchRecord] = []
         self._step_i = 0
+        self._stepping = False
         self._t0 = time.monotonic()
         self._clock = self.ecfg.clock
         self._clock_skip = 0.0
@@ -340,23 +342,28 @@ class MoebiusEngine:
         self.ex.run_copies(self.sched.drain_copies())
         if not self.sched.prefilling:
             return
-        picked = self.sched.select_prefill_rows(self.ex.prefill_chunk)
+        with tracing.span("sched.plan"):
+            picked = self.sched.select_prefill_rows(self.ex.prefill_chunk)
         if not picked:
             return
         nxt = self.ex.run_prefill(picked, self._step_i)
         t = self.now()
-        for r, d, row, n in picked:
-            self.sched.finish_prefill(r, n, int(nxt[d, row]), t)
+        with tracing.span("sched.commit"):
+            for r, d, row, n in picked:
+                self.sched.finish_prefill(r, n, int(nxt[d, row]), t)
 
     def _decode_once(self) -> None:
         if not self.sched.running:
             return
-        B, stepped = self.sched.plan_decode(self._step_i)
-        self.ex.run_copies(self.sched.drain_copies())
+        with tracing.span("sched.plan"):
+            B, stepped = self.sched.plan_decode(self._step_i)
+        with tracing.span("exec.stage"):
+            self.ex.run_copies(self.sched.drain_copies())
         if not stepped:
             return
         toks = self.ex.run_decode(B, stepped, self._step_i)
-        self.sched.commit_decode(stepped, toks)
+        with tracing.span("sched.commit"):
+            self.sched.commit_decode(stepped, toks)
 
     def _decode_step(self) -> None:
         """One decode iteration, fused or single-step as configured: the
@@ -378,14 +385,18 @@ class MoebiusEngine:
             # boundary and run single-token mixed dispatches until the
             # storm passes (runners re-join the fused loop afterwards)
             self.ex.suspend_fused(self.sched)
-        plan = self.sched.plan_mixed(self._step_i, budget=self.token_budget,
-                                     chunk=self.ex.prefill_chunk)
+        with tracing.span("sched.plan"):
+            plan = self.sched.plan_mixed(self._step_i,
+                                         budget=self.token_budget,
+                                         chunk=self.ex.prefill_chunk)
         # CoW copies from BOTH prefill admission and the plan's page growth
         # must land before the dispatch that could write their source pages
-        self.ex.run_copies(self.sched.drain_copies())
+        with tracing.span("exec.stage"):
+            self.ex.run_copies(self.sched.drain_copies())
         if plan.rows:
             nxt = self.ex.run_mixed(plan, self._step_i)
-            self.sched.commit_mixed(plan, nxt, self.now())
+            with tracing.span("sched.commit"):
+                self.sched.commit_mixed(plan, nxt, self.now())
 
     # ------------------------------------------------------------------
     # switch
@@ -414,8 +425,19 @@ class MoebiusEngine:
         if target not in self.layouts:
             raise ValueError(f"layout {target!r} is not resident "
                              f"(EngineConfig.layouts)")
+        # traced, the stall runs on to the first launch on the new layout
+        # inside step(), or ends here when called between iterations
+        tracing.begin("switch")
+        try:
+            return self._execute_switch(target)
+        finally:
+            if not self._stepping:
+                tracing.end("switch")
+
+    def _execute_switch(self, target: LayoutSpec) -> bool:
         cross_world = self.ex._is_cross_world(target)
-        self.ex.drain_decode()
+        with tracing.span("switch.drain"):
+            self.ex.drain_decode()
         if cross_world:
             # shrink feasibility gate, BEFORE any planning: the destination
             # world's page pool must hold every live request's pages.
@@ -663,6 +685,16 @@ class MoebiusEngine:
     # main loop
     # ------------------------------------------------------------------
     def step(self) -> None:
+        with tracing.span("engine.step"):
+            self._stepping = True
+            try:
+                self._step()
+            finally:
+                self._stepping = False
+                # a switch with no launch after it ends with its iteration
+                tracing.end("switch")
+
+    def _step(self) -> None:
         self._step_i += 1
         if self.ecfg.idle_skip:
             self._skip_idle()
@@ -670,7 +702,8 @@ class MoebiusEngine:
         if self._faults is not None:
             for f in self._faults.poll(self._step_i, self.now()):
                 self._apply_fault(f)
-        self.sched.admit(self.now())
+        with tracing.span("sched.admit"):
+            self.sched.admit(self.now())
         if self.sched.deadline_due(self.now()):
             # expiry finishes requests in place: drain the fused pipeline
             # first so none has in-flight tokens
@@ -686,7 +719,8 @@ class MoebiusEngine:
                                         attainment=att)
         if dec.switch:
             self.execute_switch(dec.target)
-        self.sched.start_prefills()          # admit waiting -> prefill
+        with tracing.span("sched.admit"):
+            self.sched.start_prefills()      # admit waiting -> prefill
         if self.ecfg.mixed_batch:
             self._mixed_step()
         else:
@@ -696,8 +730,6 @@ class MoebiusEngine:
         self._check_recoveries()
         self.metrics.pages_resident(sum(a.total_held()
                                         for a in self.sched.alloc))
-        self.metrics.sample_mode(self.now(), self.active,
-                                 len(self.sched.running))
 
     def run(self, max_steps: int = 100000):
         for _ in range(max_steps):

@@ -61,6 +61,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.layouts import (LayoutSpec, expert_store_shapes,
                                       get_layout, mlp_rank_major,
                                       pack_params,
@@ -229,6 +230,9 @@ class Executor:
         # completion sink for fused-pipeline retirements (the engine wires
         # this to Scheduler.finish_request)
         self.on_finish = lambda r: None
+        # traced: the grouped GEMM's device counters exist before any
+        # graph is captured
+        tracing.prepare(device)
 
     # ------------------------------------------------------------------
     # world geometry (device count as a layout dimension)
@@ -511,30 +515,50 @@ class Executor:
         prefill-chunk rows in a single call. Returns the (Dd, B) next-token
         array the engine hands to Scheduler.commit_mixed."""
         B, Sq = plan.B, plan.Sq
-        stage = self._stage(B, Sq)
-        toks, pos, vl, bt = stage.acquire()
-        n_dec = n_pref = 0
-        for row in plan.rows:
-            r, d, s, n = row.req, row.d, row.row, row.n_tokens
-            if row.kind == "decode":
-                toks[d, s, 0] = r.output[-1]
-                n_dec += 1
-            else:
-                toks[d, s, :n] = r.prompt_array()[row.start_pos:
-                                                  row.start_pos + n]
-                n_pref += n
-            pos[d, s] = row.start_pos
-            vl[d, s] = n
-            bt[d, s, :len(r.pages)] = r.pages
-        stage.upload()
-        self._stage_key(step_i)
-        nxt = self._mixed_fn(self.active, B, Sq)()
+        with tracing.span("exec.stage"):
+            stage = self._stage(B, Sq)
+            toks, pos, vl, bt = stage.acquire()
+            n_dec = n_pref = 0
+            for row in plan.rows:
+                r, d, s, n = row.req, row.d, row.row, row.n_tokens
+                if row.kind == "decode":
+                    toks[d, s, 0] = r.output[-1]
+                    n_dec += 1
+                else:
+                    toks[d, s, :n] = r.prompt_array()[row.start_pos:
+                                                      row.start_pos + n]
+                    n_pref += n
+                pos[d, s] = row.start_pos
+                vl[d, s] = n
+                bt[d, s, :len(r.pages)] = r.pages
+            stage.upload()
+            self._stage_key(step_i)
+        self._at_launch(plan.rows)
+        with tracing.span("exec.launch"):
+            nxt = self._mixed_fn(self.active, B, Sq)()
         if n_pref:
             self.metrics.prefill(n_pref)
         if n_dec:
             self.metrics.decode(n_dec, 1)
         self.metrics.dispatch(mixed=bool(n_dec and n_pref))
-        return nxt.cpu().numpy()
+        return tracing.host_read(nxt.cpu).numpy()
+
+    def _switch_ending(self) -> bool:
+        """Traced: a switch's stall is open and its layout committed, so
+        the next launch ends it."""
+        return tracing.is_open("switch") and not self.switch_in_progress()
+
+    def _at_launch(self, rows=()) -> None:
+        """Traced: the dispatch about to launch ends the queue wait of each
+        request whose first prefill chunk it carries, and a switch's
+        stall."""
+        if not tracing.active():
+            return
+        for row in rows:
+            if row.kind != "decode":
+                tracing.close_async("req.queue", row.req.rid)
+        if self._switch_ending():
+            tracing.end("switch")
 
     def run_prefill(self, picked: list, step_i: int) -> np.ndarray:
         """Two-phase wrapper: one chunked prefill step (rows from
@@ -614,24 +638,38 @@ class Executor:
             return
         B = sched.fused_rung()
         st = self._dstate
-        if st is None or st.B != B or st.layout is not self.active:
+        rebuild = st is None or st.B != B or st.layout is not self.active
+        if rebuild:
             self.drain_decode()            # step boundary before a rebuild
-            st = self._rebuild_dstate(B, sched)
-        joins, grows, plan, capped, starved = sched.plan_fused(st, N)
-        # forks land before the replay that appends to their pages; a fork
-        # of a slotted request's tail is one of `grows`
-        self.run_copies(sched.drain_copies())
-        # deltas must land even when nothing steps: plan_fused already
-        # recorded the joins in the host mirror, and a budget-clamped join
-        # still needs its token/position/table row on device for later
-        st.apply(joins, grows)
-        sched.resolve_fused(plan, capped, starved)
+        # after a switch, the rebuild and the joins of every running
+        # request belong to the switch's stall
+        with (tracing.span("switch.rebuild") if self._switch_ending()
+              else tracing.NOOP):
+            if rebuild:
+                st = self._rebuild_dstate(B, sched)
+            with tracing.span("sched.plan"):
+                joins, grows, plan, capped, starved = sched.plan_fused(st, N)
+            with tracing.span("exec.stage"):
+                # forks land before the replay that appends to their
+                # pages; a fork of a slotted request's tail is one of
+                # `grows`
+                self.run_copies(sched.drain_copies())
+                # deltas must land even when nothing steps: plan_fused
+                # already recorded the joins in the host mirror, and a
+                # budget-clamped join still needs its token/position/table
+                # row on device for later
+                st.apply(joins, grows)
+            with tracing.span("sched.plan"):
+                sched.resolve_fused(plan, capped, starved)
         if not plan:
             self.drain_decode()            # nothing live; flush the pipeline
             return
-        self._stage_key(step_i)
-        out = self._decode_loop_fn(self.active, st.B, N)()
-        host, ev = self._fetch(out)
+        with tracing.span("exec.stage"):
+            self._stage_key(step_i)
+        self._at_launch()
+        with tracing.span("exec.launch"):
+            out = self._decode_loop_fn(self.active, st.B, N)()
+            host, ev = self._fetch(out)
         total = 0
         for d, s, r, steps in plan:
             r.inflight += steps
@@ -650,16 +688,17 @@ class Executor:
         known at dispatch time."""
         host, ev, plan, st = pending
         if ev is not None:
-            ev.synchronize()
-        arr = host.numpy()
-        for d, s, r, steps in plan:
-            r.output.extend(int(t) for t in arr[d, s, :steps])
-            r.inflight -= steps
-            if r.inflight == 0 and r.done():
-                self.on_finish(r)
-                st.slot_rid[d, s] = -1
-                r.slot = None
-                r.budget_dev = 0
+            tracing.host_read(ev.synchronize)
+        with tracing.span("sched.commit"):
+            arr = host.numpy()
+            for d, s, r, steps in plan:
+                r.output.extend(int(t) for t in arr[d, s, :steps])
+                r.inflight -= steps
+                if r.inflight == 0 and r.done():
+                    self.on_finish(r)
+                    st.slot_rid[d, s] = -1
+                    r.slot = None
+                    r.budget_dev = 0
 
     def drain_decode(self) -> None:
         """Consume any in-flight fused outputs: request metadata reaches a

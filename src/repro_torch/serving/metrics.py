@@ -15,7 +15,6 @@ class ServeMetrics:
     # class name -> (ttft_target_s, tpot_target_s); installed from the
     # qos registry by the engine. Empty = attainment not computed.
     slo_targets: dict = field(default_factory=dict)
-    mode_samples: list = field(default_factory=list)  # (t, mode, running)
     switch_events: list = field(default_factory=list)  # (t, direction, pause_s, total_s)
     # elastic world switching (DESIGN.md §13): switches whose source and
     # destination layouts run on DIFFERENT device counts (8->4 shrink,
@@ -79,9 +78,6 @@ class ServeMetrics:
 
     def pages_resident(self, held: int) -> None:
         self.kv_pages_peak = max(self.kv_pages_peak, held)
-
-    def sample_mode(self, t: float, mode: str, running: int) -> None:
-        self.mode_samples.append((t, mode, running))
 
     def switch(self, t: float, direction: str, pause_s: float,
                total_s: float) -> None:

@@ -48,6 +48,7 @@ from __future__ import annotations
 from collections import deque
 from dataclasses import dataclass
 
+from repro_torch import tracing
 from repro_torch.serving.metrics import ServeMetrics
 from repro_torch.serving.paging import (full_prompt_hash, pages_needed,
                                   token_page_hashes)
@@ -270,6 +271,9 @@ class Scheduler:
         if getattr(req, "deadline_s", None) is not None:
             self._deadlines_used = True
         self.pending.append(req)
+        # closed by the launch that carries its first prefill chunk; a
+        # re-prefill after preemption (requeue_for_reprefill) opens none
+        tracing.open_async("req.queue", req.rid)
 
     def _pick_group(self, r: Request, load: list) -> int:
         """Least-loaded data group, with a mild prefix-affinity bias: a
@@ -784,6 +788,7 @@ class Scheduler:
     # decode planning
     # ------------------------------------------------------------------
     def finish_request(self, r: Request) -> None:
+        tracing.discard_async("req.queue", r.rid)
         r.state = State.FINISHED
         r.finish_s = self.clock()
         self.running.pop(r.rid, None)

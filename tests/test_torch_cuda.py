@@ -70,6 +70,46 @@ def test_grouped_matmul_kernel_matches_plain(card, dtype, tol):
     assert not out[0].any() and not out[1, 3:].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [4, 70, 300])
+def test_grouped_matmul_counts_its_work(card, dtype, C):
+    """Traced (repro_torch/tracing.py), the kernel adds each call's bytes
+    and FLOPs to the tracer's counter, from a captured graph too, as the
+    plain path counts them: per expert with a routed row, its weights and
+    each routed row in and out; 2 x rows x D x W."""
+    from repro_torch import tracing
+    rng = np.random.default_rng(C)
+    E, D, W = 6, 96, 130
+    x = torch.from_numpy(rng.standard_normal((E, C, D))).to(dtype)
+    w = torch.from_numpy(rng.standard_normal((E, W, D))).to(dtype)
+    counts = torch.tensor([0, 3, C, C + 5, 1, 0])
+    b = x.element_size()
+    rows = [min(c, C) for c in counts.tolist() if c]
+    want = {"gmm.bytes": float(sum(W * D * b + r * (D + W) * b
+                                   for r in rows)),
+            "gmm.flops": float(sum(2 * r * D * W for r in rows))}
+    xd, wd, cd = x.to(card), w.to(card), counts.to(card)
+    tracing.enable()
+    try:
+        tracing.count_gmm(x, w, counts)
+        assert tracing.read_device() == want
+        tracing.prepare(card)
+        tracing.reset_device()
+        grouped_matmul(xd, wd, cd)
+        torch.cuda.synchronize()
+        assert tracing.read_device() == want
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            grouped_matmul(xd, wd, cd)
+        tracing.reset_device()
+        g.replay()
+        g.replay()
+        torch.cuda.synchronize()
+        assert tracing.read_device() == {k: 2 * v for k, v in want.items()}
+    finally:
+        tracing.disable()
+
+
 @pytest.mark.parametrize("H,K", [(32, 2), (32, 8)])        # rep 16 and 4
 @pytest.mark.parametrize("Sq,window", [(1, 0), (1, 300), (5, 0), (40, 200)])
 def test_paged_attention_bf16_split_kv(card, H, K, Sq, window):
