@@ -513,8 +513,10 @@ def phase_kernels(results: dict) -> None:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.moe_gemm.kernel import grouped_matmul_cuda
-    from repro_torch.kernels.moe_gemm.ref import grouped_matmul_ref
+    from repro_torch.kernels.moe_gemm.kernel import (grouped_matmul_cuda,
+                                                     grouped_swiglu_cuda)
+    from repro_torch.kernels.moe_gemm.ref import (grouped_matmul_ref,
+                                                  grouped_swiglu_ref, swiglu)
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_cuda
     from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -678,6 +680,44 @@ def phase_kernels(results: dict) -> None:
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib_ms)
         del x, w, wt, cnt, got, ref
+    # w13 through #2's SwiGLU epilogue -> (E, C, I): bit-equal to #2 then
+    # PyTorch's SiLU times up (`unfused_ms` times that composition); bound:
+    # the loaded experts' weights plus each routed row read D and written I
+    # wide
+    swiglu_cases = [
+        ("w13_swiglu_decode", dict(E=128, C=8, D=4096, W=3072)),
+        ("w13_swiglu_mixed", dict(E=128, C=256, D=4096, W=3072)),
+    ]
+    for name, kw in swiglu_cases:
+        x, w, cnt, rows = gmm_case(gen, **kw)
+        got = grouped_swiglu_cuda(x, w, cnt)
+        unfused = swiglu(grouped_matmul_cuda(x, w, cnt))
+        ref = grouped_swiglu_ref(x, w, cnt)
+        torch.cuda.synchronize()
+        d_unf = float((got.float() - unfused.float()).abs().max())
+        check(torch.equal(got.view(torch.int16), unfused.view(torch.int16)),
+              f"gmm {name}: fused != unfused (max |d| {d_unf})")
+        e_abs, e_rel, ok = max_errs(got, ref)
+        check(ok, f"gmm {name}: |err| {e_abs} above bf16 tolerance")
+        zero = (x.float().abs().sum(-1) == 0)
+        check(not got[zero].any(), f"gmm {name}: zero rows not zero")
+        worst = max(worst, e_abs)
+        ms = cuda_ms(lambda: grouped_swiglu_cuda(x, w, cnt))
+        unf_ms = cuda_ms(lambda: swiglu(grouped_matmul_cuda(x, w, cnt)))
+        plain_ms = cuda_ms(lambda: grouped_swiglu_ref(x, w, cnt), iters=20,
+                           warmup=1)
+        E, C, D = x.shape
+        W = w.shape[1]
+        active = int((cnt > 0).sum())
+        nb = (active * W * D + rows * (D + W // 2)) * x.element_size()
+        b_ms, b_by = bound(nb, 2.0 * rows * W * D, x.dtype)
+        print(f"grouped_swiglu {name}: E={E} C={C} D={D} I={W // 2} "
+              f"rows={rows} experts_with_rows={active} bit-equal to unfused; "
+              f"max_abs_err={e_abs:.3e} max_rel_err={e_rel:.3e} "
+              f"ms={ms:.4f} unfused_ms={unf_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) = {b_ms / ms:.1%} of bound",
+              flush=True)
+        del x, w, cnt, got, unfused, ref
     results["grouped_matmul"] = dict(
         name="grouped_matmul", route="cuda",
         source="src/repro_torch/csrc/moe_gemm.cu",
@@ -981,6 +1021,7 @@ def phase_serve(results: dict) -> None:
             step_log, decode_only=True)
         n_att = dispatch.calls("paged_attention")
         n_gmm = dispatch.calls("grouped_matmul")
+        n_swi = dispatch.calls("grouped_swiglu")
         disp = eng.metrics.dispatches
         check(len(eng.finished) == 8, f"{layout}: {len(eng.finished)}/8 done")
         for r in eng.finished:
@@ -990,8 +1031,10 @@ def phase_serve(results: dict) -> None:
         L = cfg.num_layers
         check(n_att >= L * disp, f"{layout}: {n_att} attention launches for "
                                  f"{disp} dispatches x {L} layers")
-        check(n_gmm == 2 * L * disp, f"{layout}: {n_gmm} gmm launches for "
-                                     f"{disp} dispatches x {L} layers")
+        # #2 twice a layer: w13 with its SwiGLU epilogue, then w2
+        check(n_swi == L * disp and n_gmm == L * disp,
+              f"{layout}: {n_swi} w13 + {n_gmm} w2 gmm launches for {disp} "
+              f"dispatches x {L} layers")
         toks = sum(len(r.output) for r in eng.finished)
         results.setdefault("serve_outputs", {})[layout] = {
             r.rid: list(r.output) for r in eng.finished}
@@ -1000,10 +1043,12 @@ def phase_serve(results: dict) -> None:
               f"{disp} dispatches, {toks} tokens in {wall:.3f} s -> "
               f"{toks / wall:.2f} tok/s, mean step {wall / steps * 1e3:.2f} ms,"
               f" peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-              f"launches attention={n_att} gmm={n_gmm}, mean decode-only "
+              f"launches attention={n_att} gmm={n_swi}+{n_gmm}, mean "
+              f"decode-only "
               f"step {results['static_decode_ms'][layout]:.2f} ms",
               flush=True)
-        for k, n in (("paged_attention", n_att), ("grouped_matmul", n_gmm)):
+        for k, n in (("paged_attention", n_att), ("grouped_matmul", n_gmm),
+                     ("grouped_swiglu", n_swi)):
             results["launches"][k] = results["launches"].get(k, 0) + n
         firsts[layout] = {r.rid: r.output[0] for r in eng.finished}
         # the first-token logits, finite, through the engine's own pack,
@@ -1112,6 +1157,8 @@ def phase_parity_switch() -> None:
 # phase 5: live switches at full width
 # ---------------------------------------------------------------------------
 
+# #2's launch counters: w2 (and any plain GEMM), w13 with its SwiGLU epilogue
+GMM_OPS = ("grouped_matmul", "grouped_swiglu")
 SWITCH_KERNELS = ("gather_pages_rows", "scatter_pages_rows",
                   "pack_peer_chunks", "pack_width_chunks",
                   "interleave_shards", "interleave_width_shards")
@@ -1358,7 +1405,7 @@ def graph_report(eng, what: str) -> dict:
     graphs = rt.executables
     check(len(graphs) > 0, f"{what}: no graph was captured")
     for key, e in graphs.items():
-        for op in ("paged_attention", "grouped_matmul"):
+        for op in ("paged_attention",) + GMM_OPS:
             check(e.launches.get(op, 0) > 0,
                   f"{what}: graph {key} holds no {op} launch")
     pool = rt.pool_bytes()
@@ -2141,8 +2188,7 @@ def phase_prefix(results: dict) -> None:
                              ecfg=EngineConfig(**kw))
 
     def launches(eng, tally, what):
-        n = {k: dispatch.calls(k) for k in ("paged_attention",
-                                            "grouped_matmul")
+        n = {k: dispatch.calls(k) for k in ("paged_attention",) + GMM_OPS
              + SWITCH_KERNELS}
         check(all(tally[op] > 0 for op in KV_ROWS),
               f"{what}: CoW copies launched {tally}")
@@ -2711,8 +2757,7 @@ def phase_elastic(results: dict) -> None:
     # a re-prefilled request carries its earlier tokens in its prompt
     got = {r.rid: list(r.prompt[len(prompts[r.rid]):]) + list(r.output)
            for r in eng.finished}
-    counts = {k: dispatch.calls(k) for k in ("paged_attention",
-                                             "grouped_matmul")
+    counts = {k: dispatch.calls(k) for k in ("paged_attention",) + GMM_OPS
               + SWITCH_KERNELS}
     n_staged = len(staged)
     switch_exec.gather_pages_rows = inner_gather
@@ -2733,8 +2778,8 @@ def phase_elastic(results: dict) -> None:
                                   f"after warmup")
     check(n_staged > 0 and counts["gather_pages_rows"] >= n_staged,
           f"elastic: {n_staged} staging launches, counts {counts}")
-    for k in ("paged_attention", "grouped_matmul", "gather_pages_rows",
-              "scatter_pages_rows"):
+    for k in ("paged_attention", "gather_pages_rows",
+              "scatter_pages_rows") + GMM_OPS:
         results["launches"][k] = results["launches"].get(k, 0) + counts[k]
     for a in eng.alloc:
         a.check()
@@ -3365,7 +3410,7 @@ def phase_reference(results: dict) -> None:
               f"{toks} tokens")
         print(f"reference {layout}: 8 requests, {toks} tokens in "
               f"{wall:.3f} s (eager)", flush=True)
-    n = {k: dispatch.calls(k) for k in ("paged_attention", "grouped_matmul")}
+    n = {k: dispatch.calls(k) for k in ("paged_attention",) + GMM_OPS}
     check(all(v > 0 for v in n.values()), f"reference: launches {n}")
     for k, v in n.items():
         results["launches"][k] = results["launches"].get(k, 0) + v
@@ -3814,11 +3859,12 @@ def plain_serve_kernels():
     back); returns the undo."""
     import torch
 
-    from repro_torch.kernels.moe_gemm.ref import grouped_matmul_ref
+    from repro_torch.kernels.moe_gemm.ref import (grouped_matmul_ref,
+                                                  grouped_swiglu_ref)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     from repro_torch.models import moe
     from repro_torch.serving import steps
-    inner = steps.paged_attention, moe.grouped_matmul
+    inner = steps.paged_attention, moe.grouped_matmul, moe.grouped_swiglu
 
     def attention(q, k_pool, v_pool, block_table, kv_lens, *, q_offset,
                   window=0):
@@ -3826,10 +3872,11 @@ def plain_serve_kernels():
             q[g], k_pool[g], v_pool[g], block_table[g], kv_lens[g],
             q_offset=q_offset[g], window=window) for g in range(q.shape[0])])
 
-    steps.paged_attention, moe.grouped_matmul = attention, grouped_matmul_ref
+    steps.paged_attention, moe.grouped_matmul, moe.grouped_swiglu = \
+        attention, grouped_matmul_ref, grouped_swiglu_ref
 
     def undo():
-        steps.paged_attention, moe.grouped_matmul = inner
+        steps.paged_attention, moe.grouped_matmul, moe.grouped_swiglu = inner
     return undo
 
 
@@ -4302,7 +4349,7 @@ def phase_shared(results: dict) -> None:
         undo()
     late = rt.late_builds
     check(late == 0, f"shared: {late} captures after warmup")
-    n = {k: dispatch.calls(k) for k in ("paged_attention", "grouped_matmul")
+    n = {k: dispatch.calls(k) for k in ("paged_attention",) + GMM_OPS
          + SWITCH_KERNELS}
     replayed = rt.replayed_launches() - replays0
     check(all(v > 0 for v in n.values())
@@ -4738,9 +4785,9 @@ def launch_serve(results: dict) -> None:
               f"launch {run}: {len(out)} requests, {toks} tokens")
         rep = rt.replayed_launches() - r0
         n = {k: dispatch.calls(k) + rep.get(k, 0)
-             for k in ("paged_attention", "grouped_matmul")}
+             for k in ("paged_attention",) + GMM_OPS}
         check(all(v > 0 for v in n.values()), f"launch {run}: launches {n}")
-        for k in ("paged_attention", "grouped_matmul") + SWITCH_KERNELS:
+        for k in ("paged_attention",) + GMM_OPS + SWITCH_KERNELS:
             results["launches"][k] = (results["launches"].get(k, 0)
                                       + dispatch.calls(k))
         dec = [ms / N for ms, d, _ in log if d]
@@ -6582,6 +6629,8 @@ def main() -> int:
                  "interleave_width_shards", "interleave_shards"):
         row = results[name]
         row["launches"] = results["launches"].get(name, 0)
+        if name == "grouped_matmul":      # #2 with its SwiGLU epilogue too
+            row["launches"] += results["launches"].get("grouped_swiglu", 0)
         check(row["launches"] > 0 or name in off_path,
               f"{name} never launched on its path")
         rows.append({k: row[k] for k in (

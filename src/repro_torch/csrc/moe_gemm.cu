@@ -33,6 +33,21 @@
 // Epilogue: the accumulator tile goes through shared memory as bf16 so that
 // out, W-contiguous, is written with 16-byte stores.
 //
+// SwiGLU epilogue (the same kernel, SWIGLU = true; entry
+// grouped_swiglu_launch): x (E, C, D), w13 (E, 2I, D) with the gate rows
+// [0, I) above the up rows [I, 2I) -> h (E, C, I) = silu(gate) * up. A
+// block pairs 64 gate rows [w0, w0 + 64) with the matching 64 up rows
+// [I + w0, I + w0 + 64): two TMA boxes of a 4-D map (D, I, 2, E) fill the
+// same 128-row weight stage, so warpgroup 0 accumulates the gate tile and
+// warpgroup 1 the up tile for the same C columns, and a ragged I edge
+// zero-fills inside its own half. After the bf16 staging one pass reads
+// gate and up, widens both to fp32, computes g / (1 + expf(-g)) * u and
+// rounds to bf16: the roundings of the unfused composition (bf16 GEMM
+// out, fp32 SiLU and product, bf16), so the result is bit-equal to it.
+// The (E, C, 2I) intermediate never reaches device memory: at decode C
+// the activation's four elementwise passes over the capacity buffer cost
+// more device time than the GEMM's weight reads.
+//
 // f32 design (gmm_kernel, unchanged from the first port): a shared-memory
 // tiled IEEE fp32 FMA GEMM (never TF32), grid (W tiles, C tiles, E), 64 x 64
 // tile per block of 256 threads. The path is chosen by dtype alone.
@@ -40,7 +55,9 @@
 // Optional work (2,) double, the tracer's counter (null when tracing is
 // off): each expert with a routed row adds its work once, from the block
 // of its first W tile and first C tile: bytes += its weights plus each
-// routed row read and written, flops += 2 * rows * D * W.
+// routed row read and written, flops += 2 * rows * D * W (the SwiGLU
+// epilogue: weights of 2I rows, rows read D wide and written I wide,
+// 2 * rows * D * 2I).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -51,9 +68,11 @@
 
 namespace {
 
-__device__ void add_work(double* work, int rows, int D, int W, int elem) {
+// W weight rows read, Wo output columns written a row
+__device__ void add_work(double* work, int rows, int D, int W, int Wo,
+                         int elem) {
   if (rows <= 0) return;
-  atomicAdd(&work[0], (double)W * D * elem + (double)rows * (D + W) * elem);
+  atomicAdd(&work[0], (double)W * D * elem + (double)rows * (D + Wo) * elem);
   atomicAdd(&work[1], 2.0 * rows * D * W);
 }
 
@@ -90,7 +109,7 @@ gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // rows at or past this expert's load are zero: skip their depth loop
   const int c_end = counts ? min(C, counts[e]) : C;
   if (work != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0)
-    add_work(work, c_end, D, W, sizeof(float));
+    add_work(work, c_end, D, W, W, sizeof(float));
   const int k_end = c0 < c_end ? D : 0;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
 #pragma unroll
@@ -199,6 +218,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// 4-D TMA tile load, coordinates innermost first
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -406,7 +437,26 @@ __device__ __forceinline__ void zero_tile(__nv_bfloat16* o, int c_lo,
   }
 }
 
-template <int BN>
+__device__ __forceinline__ float silu_mul(__nv_bfloat16 g, __nv_bfloat16 u) {
+  const float gf = __bfloat162float(g);
+  return gf / (1.0f + expf(-gf)) * __bfloat162float(u);
+}
+
+// eight SwiGLU outputs from eight gate and eight up values, bf16 each
+__device__ __forceinline__ uint4 silu_mul8(uint4 g, uint4 u) {
+  const __nv_bfloat16* gb = reinterpret_cast<const __nv_bfloat16*>(&g);
+  const __nv_bfloat16* ub = reinterpret_cast<const __nv_bfloat16*>(&u);
+  uint4 o;
+  __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(&o);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) ob[k] = __float2bfloat16(silu_mul(gb[k], ub[k]));
+  return o;
+}
+
+// SWIGLU = false: out (E, C, W) = x . w^T, tm_w a 3-D map (D, W, E).
+// SWIGLU = true: out (E, C, W) = silu(x . gate^T) * (x . up^T) with W = I,
+// tm_w a 4-D map (D, I, 2, E) of w13.
+template <int BN, bool SWIGLU>
 __global__ void __launch_bounds__(kWThreads, GmmCfg<BN>::kMinBlocks)
 gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w,
                  const __grid_constant__ CUtensorMap tm_x,
@@ -415,6 +465,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w,
                  double* __restrict__ work, int C, int D, int W) {
   using Cfg = GmmCfg<BN>;
   constexpr int S = Cfg::kStages;
+  constexpr int kOut = SWIGLU ? kWM / 2 : kWM;   // out columns per block
   extern __shared__ uint8_t smem_raw[];
   // TMA's 128-byte swizzle repeats every 1024 B: align the ring to it
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -422,12 +473,12 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w,
   uint64_t* empty = full + S;
 
   const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BN, w0 = blockIdx.y * kWM, e = blockIdx.z;
+  const int n0 = blockIdx.x * BN, w0 = blockIdx.y * kOut, e = blockIdx.z;
   const int cnt = counts ? min(C, counts[e]) : C;
   if (work != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0)
-    add_work(work, cnt, D, W, sizeof(__nv_bfloat16));
+    add_work(work, cnt, D, SWIGLU ? 2 * W : W, W, sizeof(__nv_bfloat16));
   __nv_bfloat16* oe = out + (size_t)e * C * W;
-  const int c_hi = min(C, n0 + BN), w_hi = min(W, w0 + kWM);
+  const int c_hi = min(C, n0 + BN), w_hi = min(W, w0 + kOut);
   if (n0 >= cnt) {          // no routed row in this pass: zeros, no reads
     zero_tile(oe, n0, c_hi, w0, w_hi, W, tid, kWThreads);
     return;
@@ -450,14 +501,20 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w,
         if (kb >= S) mbar_wait(&empty[s], ((kb / S) + 1) & 1);
         uint8_t* st = smem + s * Cfg::kStage;
         mbar_expect_tx(&full[s], Cfg::kStage);
-        tma_load_3d(st, &tm_w, &full[s], kb * kWK, w0, e);
+        if constexpr (SWIGLU) {     // gate rows over up rows, 64 each
+          tma_load_4d(st, &tm_w, &full[s], kb * kWK, w0, 0, e);
+          tma_load_4d(st + kStageA / 2, &tm_w, &full[s], kb * kWK, w0, 1, e);
+        } else {
+          tma_load_3d(st, &tm_w, &full[s], kb * kWK, w0, e);
+        }
         tma_load_3d(st + kStageA, &tm_x, &full[s], kb * kWK, n0, e);
       }
     }
     return;
   }
 
-  // consumers: warpgroup wg owns W rows [w0 + 64 wg, w0 + 64 wg + 64)
+  // consumers: warpgroup wg owns stage rows [64 wg, 64 wg + 64): W rows
+  // [w0 + 64 wg, ...), or (SWIGLU) the gate rows (wg 0) and up rows (wg 1)
   const int wg = tid / 128;
   float acc[BN / 2];
 #pragma unroll
@@ -495,22 +552,33 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w,
     stg[(c + 1) * P + r + 8] = __float2bfloat16(acc[4 * j + 3]);
   }
   consumer_sync();
+  // SWIGLU: out column q of the tile is gate stg[c][q] and up stg[c][64 + q]
   const int nc = c_hi - n0, nw = w_hi - w0;
   if (W % 8 == 0) {                  // 16-byte stores along W
-    constexpr int Q = kWM / 8;
+    constexpr int Q = kOut / 8;
     for (int i = tid; i < nc * Q; i += kConsumers) {
       const int c = i / Q, q = i % Q;
       if (q * 8 >= nw) continue;
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (n0 + c < cnt) v = *reinterpret_cast<const uint4*>(stg + c * P + q * 8);
+      if (n0 + c < cnt) {
+        const __nv_bfloat16* src = stg + c * P + q * 8;
+        v = *reinterpret_cast<const uint4*>(src);
+        if constexpr (SWIGLU)
+          v = silu_mul8(v, *reinterpret_cast<const uint4*>(src + 64));
+      }
       *reinterpret_cast<uint4*>(oe + (size_t)(n0 + c) * W + w0 + q * 8) = v;
     }
   } else {
-    for (int i = tid; i < nc * kWM; i += kConsumers) {
-      const int c = i / kWM, q = i % kWM;
+    for (int i = tid; i < nc * kOut; i += kConsumers) {
+      const int c = i / kOut, q = i % kOut;
       if (q >= nw) continue;
-      oe[(size_t)(n0 + c) * W + w0 + q] =
-          n0 + c < cnt ? stg[c * P + q] : __float2bfloat16(0.f);
+      __nv_bfloat16 v = __float2bfloat16(0.f);
+      if (n0 + c < cnt) {
+        v = stg[c * P + q];
+        if constexpr (SWIGLU)
+          v = __float2bfloat16(silu_mul(v, stg[c * P + 64 + q]));
+      }
+      oe[(size_t)(n0 + c) * W + w0 + q] = v;
     }
   }
 }
@@ -541,56 +609,69 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (inner, rows, E) bf16 tensor, box (kWK, box_rows, 1), 128-byte swizzle;
-// out-of-bounds rows and depth read as zero
-bool make_map(CUtensorMap* map, const void* base, int inner, int rows, int E,
-              int box_rows) {
+// a bf16 tensor of `rank` dims (innermost first: D, rows[, 2], E), box
+// (kWK, box_rows, 1...), 128-byte swizzle; out-of-bounds rows and depth
+// read as zero
+bool make_map(CUtensorMap* map, const void* base, int rank,
+              const cuuint64_t* dims, int box_rows) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
-                              (cuuint64_t)E};
-  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2,
-                                 (cuuint64_t)rows * inner * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kWK, (cuuint32_t)box_rows, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  cuuint64_t strides[3];
+  cuuint64_t pitch = 2;
+  for (int i = 0; i < rank - 1; ++i) strides[i] = pitch *= dims[i];
+  const cuuint32_t box[4] = {(cuuint32_t)kWK, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
              const_cast<void*>(base), dims, strides, box, estr,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN>
+// SWIGLU: W is I, w holds 2I rows an expert
+template <int BN, bool SWIGLU>
 int launch_bf16_n(const void* x, const void* w, const int* counts, void* out,
                   double* work, int E, int C, int D, int W,
                   cudaStream_t stream) {
   using Cfg = GmmCfg<BN>;
+  constexpr int kOut = SWIGLU ? kWM / 2 : kWM;
   CUtensorMap tm_w, tm_x;
-  if (!make_map(&tm_w, w, D, W, E, kWM) || !make_map(&tm_x, x, D, C, E, BN))
+  const cuuint64_t dw3[3] = {(cuuint64_t)D, (cuuint64_t)W, (cuuint64_t)E};
+  const cuuint64_t dw4[4] = {(cuuint64_t)D, (cuuint64_t)W, 2, (cuuint64_t)E};
+  const cuuint64_t dx[3] = {(cuuint64_t)D, (cuuint64_t)C, (cuuint64_t)E};
+  const bool ok = SWIGLU ? make_map(&tm_w, w, 4, dw4, kOut)
+                         : make_map(&tm_w, w, 3, dw3, kOut);
+  if (!ok || !make_map(&tm_x, x, 3, dx, BN))
     return (int)cudaErrorInvalidValue;
-  auto kern = gmm_wgmma_kernel<BN>;
+  auto kern = gmm_wgmma_kernel<BN, SWIGLU>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((C + BN - 1) / BN, (W + kWM - 1) / kWM, E);
+  dim3 grid((C + BN - 1) / BN, (W + kOut - 1) / kOut, E);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   kern<<<grid, kWThreads, Cfg::kSmem, stream>>>(
       tm_w, tm_x, counts, static_cast<__nv_bfloat16*>(out), work, C, D, W);
   return (int)cudaGetLastError();
 }
 
+template <bool SWIGLU>
 int launch_bf16(const void* x, const void* w, const int* counts, void* out,
                 double* work, int E, int C, int D, int W, cudaStream_t s) {
   // TMA: 16-byte aligned bases and row strides
   if (D % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  if (C <= 8) return launch_bf16_n<8>(x, w, counts, out, work, E, C, D, W, s);
-  if (C <= 16) return launch_bf16_n<16>(x, w, counts, out, work, E, C, D, W, s);
-  if (C <= 32) return launch_bf16_n<32>(x, w, counts, out, work, E, C, D, W, s);
-  if (C <= 64) return launch_bf16_n<64>(x, w, counts, out, work, E, C, D, W, s);
-  if (C <= 128) return launch_bf16_n<128>(x, w, counts, out, work, E, C, D, W, s);
-  return launch_bf16_n<256>(x, w, counts, out, work, E, C, D, W, s);
+  if (C <= 8)
+    return launch_bf16_n<8, SWIGLU>(x, w, counts, out, work, E, C, D, W, s);
+  if (C <= 16)
+    return launch_bf16_n<16, SWIGLU>(x, w, counts, out, work, E, C, D, W, s);
+  if (C <= 32)
+    return launch_bf16_n<32, SWIGLU>(x, w, counts, out, work, E, C, D, W, s);
+  if (C <= 64)
+    return launch_bf16_n<64, SWIGLU>(x, w, counts, out, work, E, C, D, W, s);
+  if (C <= 128)
+    return launch_bf16_n<128, SWIGLU>(x, w, counts, out, work, E, C, D, W, s);
+  return launch_bf16_n<256, SWIGLU>(x, w, counts, out, work, E, C, D, W, s);
 }
 
 }  // namespace
@@ -608,6 +689,20 @@ extern "C" int grouped_matmul_launch(const void* x, const void* w,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_f32(x, w, cnt, out, wk, E, C, D, W, s);
-  if (dtype == 1) return launch_bf16(x, w, cnt, out, wk, E, C, D, W, s);
+  if (dtype == 1)
+    return launch_bf16<false>(x, w, cnt, out, wk, E, C, D, W, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// bfloat16 only: x (E, C, D), w13 (E, 2I, D), gate rows over up rows ->
+// out (E, C, I) = silu(x . gate^T) * (x . up^T); counts and work as above.
+extern "C" int grouped_swiglu_launch(const void* x, const void* w13,
+                                     const void* counts, void* out,
+                                     void* work, int E, int C, int D, int I,
+                                     void* stream) {
+  if (E <= 0 || C <= 0 || D <= 0 || I <= 0 || E > 65535)
+    return (int)cudaErrorInvalidValue;
+  return launch_bf16<true>(x, w13, static_cast<const int*>(counts), out,
+                           static_cast<double*>(work), E, C, D, I,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.distributed import ranks
-from repro_torch.kernels.moe_gemm.ops import grouped_matmul
+from repro_torch.kernels.moe_gemm.ops import grouped_matmul, grouped_swiglu
 from repro_torch.models.common import ModelConfig, dense_init, matmul
 
 
@@ -307,14 +307,14 @@ def shared_expert_forward(cfg: ModelConfig, p: dict,
 def _grouped_ffn_local(cfg: ModelConfig, w13, w2, xd, counts=None):
     """xd (E, C, D); w13 (E, W13_loc, D); w2 (E, D, W2_loc) -> (E, C, D).
 
-    Both GEMMs route through kernels/moe_gemm.grouped_matmul; w2 stores its
-    width axis last, so the same (E,C,D)x(E,W,D)->(E,C,W) contraction fits
-    both. counts (E,): rows filled per expert (the rest are zero rows).
-    The result stays in the compute dtype: repro widens all of it to fp32
-    here, the port widens only the rows it gathers back (same values)."""
-    h = grouped_matmul(xd, w13, counts).float()
-    hg, hu = h.chunk(2, dim=-1)
-    h = (F.silu(hg) * hu).to(cfg.compute_dtype)
+    Both GEMMs route through kernels/moe_gemm: w13 and the SiLU times up
+    through `grouped_swiglu` (in bf16 one launch of #2 with its SwiGLU
+    epilogue), w2 through `grouped_matmul`; w2 stores its width axis last,
+    so the same (E,C,D)x(E,W,D)->(E,C,W) contraction fits. counts (E,):
+    rows filled per expert (the rest are zero rows). xd is in the compute
+    dtype, and so is the result: repro widens all of it to fp32 here, the
+    port widens only the rows it gathers back (same values)."""
+    h = grouped_swiglu(xd, w13, counts)
     return grouped_matmul(h, w2, counts)
 
 

@@ -33,7 +33,8 @@ through `host_read` (each also a span `exec.host_read`); every change is
 kept as a sample for the exporter. The device counters `gmm.bytes` and
 `gmm.flops` are the work of the grouped expert GEMM: per call and per
 rank-expert slice with a routed row, the slice's weights plus each routed
-row's input read and output written, and 2 x rows x D x W FLOPs. On a
+row's input read and output written (I wide from the SwiGLU epilogue),
+and 2 x rows x D x W FLOPs. On a
 card the kernel adds them itself (csrc/moe_gemm.cu, into `gmm_work`, one
 float64 pair on the device, inside the captured graphs too: no launch of
 its own); the plain path counts the same (`count_gmm`). The pairs belong
@@ -340,18 +341,21 @@ def gmm_work(device) -> torch.Tensor:
     return g
 
 
-def count_gmm(x: torch.Tensor, w: torch.Tensor, counts) -> None:
+def count_gmm(x: torch.Tensor, w: torch.Tensor, counts,
+              out_width: int | None = None) -> None:
     """The plain path's count of what the kernel counts itself: one call
     x (E, C, D) @ w (E, W, D) -> (E, C, W) in x's dtype, rows at or past
-    counts[e] skipped."""
+    counts[e] skipped; `out_width`: the SwiGLU epilogue's I-wide output
+    in place of W."""
     E, C, D = x.shape
     W = w.shape[1]
+    Wo = W if out_width is None else out_width
     rows = (torch.full((E,), C, dtype=torch.float64, device=x.device)
             if counts is None
             else counts.reshape(-1).clamp(max=C).to(torch.float64))
     acc = gmm_work(x.device)
     acc[0] += (rows.sign() * (W * D * w.element_size())
-               + rows * ((D + W) * x.element_size())).sum()
+               + rows * ((D + Wo) * x.element_size())).sum()
     acc[1] += rows.sum() * (2 * D * W)
 
 

@@ -11,8 +11,9 @@ import torch
 
 from repro_torch.core.policy import PolicyConfig
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.moe_gemm.ops import grouped_matmul
-from repro_torch.kernels.moe_gemm.ref import grouped_matmul_ref
+from repro_torch.kernels.moe_gemm.ops import grouped_matmul, grouped_swiglu
+from repro_torch.kernels.moe_gemm.ref import (grouped_matmul_ref,
+                                              grouped_swiglu_ref)
 from repro_torch.kernels.paged_attention.ops import paged_attention
 
 pytestmark = pytest.mark.cuda
@@ -165,6 +166,95 @@ def test_grouped_matmul_bf16_wgmma_shapes(card, C, W):
                                atol=2e-2)
     past = torch.arange(C)[None, :] >= counts[:, None].long()
     assert not out.cpu()[past].any()
+
+
+# (E, C, D, I, load): w13 of qwen3-235b-a22b and qwen2-moe-a2.7b over G = 2
+# ranks at the graphed decode step's C (EP: G x Cd rows a rank-expert, 256
+# and 128; TP: 32, the capacity of 32 tokens), with a handful of rows an
+# expert as decode routes them; w13_mixed (chip_smoke.py's, every expert
+# loaded up to C); and a ragged half (I = 70: a second gate tile of 6 rows)
+SWIGLU_CARD = {
+    "qwen3_ep": (128, 256, 4096, 1536, "decode"),
+    "qwen3_tp": (256, 32, 4096, 768, "decode"),
+    "qwen2_ep": (60, 128, 2048, 1408, "decode"),
+    "qwen2_tp": (120, 32, 2048, 704, "decode"),
+    "w13_mixed": (128, 256, 4096, 1536, "mixed"),
+    "ragged_half": (6, 70, 96, 70, "mixed"),
+}
+
+
+@pytest.mark.parametrize("case", list(SWIGLU_CARD))
+def test_grouped_swiglu_bit_equal_to_unfused(card, case):
+    """#2 with its SwiGLU epilogue against #2 (bf16, unfused) followed by
+    PyTorch's SiLU times up in fp32 and the cast to bf16, on the card: the
+    same roundings (bf16 GEMM out, fp32 SiLU and product, bf16 out), so
+    the same bits. Rows past counts hold garbage and must come out 0."""
+    import torch.nn.functional as F
+    E, C, D, I, load = SWIGLU_CARD[case]
+    gen = torch.Generator(device=card).manual_seed(E + C + I)
+    bf = torch.bfloat16
+    x = torch.randn((E, C, D), generator=gen, device=card).to(bf)
+    w13 = torch.empty((E, 2 * I, D), dtype=bf, device=card)
+    for e in range(E):      # fp32 scratch one expert at a time
+        w13[e] = torch.randn((2 * I, D), generator=gen, device=card) / D ** .5
+    hi = 5 if load == "decode" else C + 1
+    counts = torch.randint(0, hi, (E,), generator=gen, device=card)
+    counts[::7] = 0
+    counts = counts.int()
+    dispatch.reset_counts()
+    got = grouped_swiglu(x, w13, counts)
+    torch.cuda.synchronize()
+    assert dispatch.calls("grouped_swiglu") == 1
+    assert dispatch.calls("grouped_matmul") == 0
+    h = grouped_matmul(x, w13, counts).float()
+    want = (F.silu(h[..., :I]) * h[..., I:]).to(bf)
+    diff = float((got.float() - want.float()).abs().max())
+    assert _bits_equal(got, want), f"{case}: max |fused - unfused| {diff}"
+    past = torch.arange(C, device=card)[None, :] >= counts[:, None]
+    assert not got[past].any()
+    if case == "ragged_half":        # and the plain version on the CPU
+        ref = grouped_swiglu_ref(x.cpu(), w13.cpu(), counts.cpu())
+        torch.testing.assert_close(got.cpu().float(), ref.float(),
+                                   rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("C", [4, 70, 300])
+def test_grouped_swiglu_counts_its_work(card, C):
+    """Traced, the SwiGLU epilogue's launch adds what it moves, eagerly and
+    from a captured graph: per expert with a routed row its 2I weight rows
+    and each routed row read D wide and written I wide; 2 x rows x D x 2I
+    FLOPs; the same as the plain path's count."""
+    from repro_torch import tracing
+    rng = np.random.default_rng(C)
+    E, D, I = 6, 96, 70
+    bf = torch.bfloat16
+    x = torch.from_numpy(rng.standard_normal((E, C, D))).to(bf)
+    w13 = torch.from_numpy(rng.standard_normal((E, 2 * I, D))).to(bf)
+    counts = torch.tensor([0, 3, C, C + 5, 1, 0])
+    rows = [min(c, C) for c in counts.tolist() if c]
+    want = {"gmm.bytes": float(sum(2 * I * D * 2 + r * (D + I) * 2
+                                   for r in rows)),
+            "gmm.flops": float(sum(2 * r * D * 2 * I for r in rows))}
+    xd, wd, cd = x.to(card), w13.to(card), counts.to(card)
+    tracing.enable()
+    try:
+        tracing.count_gmm(x, w13, counts, out_width=I)
+        assert tracing.read_device() == want
+        tracing.prepare(card)
+        tracing.reset_device()
+        grouped_swiglu(xd, wd, cd)
+        torch.cuda.synchronize()
+        assert tracing.read_device() == want
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            grouped_swiglu(xd, wd, cd)
+        tracing.reset_device()
+        g.replay()
+        g.replay()
+        torch.cuda.synchronize()
+        assert tracing.read_device() == {k: 2 * v for k, v in want.items()}
+    finally:
+        tracing.disable()
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -517,7 +607,8 @@ def test_switches_capture_nothing_after_warmup(card):
 
 def test_each_graph_holds_both_kernels(card):
     """Every captured graph launched paged_attention once and the grouped
-    GEMM twice per layer and substep at its capture; replays add no
+    GEMM twice per layer and substep at its capture, w13 with its SwiGLU
+    epilogue (grouped_swiglu) and w2 (grouped_matmul); replays add no
     wrapper count but are counted per graph."""
     N = 4
     eng = _graph_engine(card, start_layout="ep", decode_steps=N)
@@ -525,7 +616,8 @@ def test_each_graph_holds_both_kernels(card):
     for key, e in eng.ex.rt.executables.items():
         n = N if key[1] == "decode_loop" else 1
         assert e.launches.get("paged_attention") == L * n, (key, e.launches)
-        assert e.launches.get("grouped_matmul") == 2 * L * n, key
+        assert e.launches.get("grouped_matmul") == L * n, key
+        assert e.launches.get("grouped_swiglu") == L * n, key
 
 
 # ---------------------------------------------------------------------------

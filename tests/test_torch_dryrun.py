@@ -437,7 +437,8 @@ def test_meta_calls_launch_nothing():
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.expert_reshard import ops as er
     from repro_torch.kernels.kv_pack import ops as kv
-    from repro_torch.kernels.moe_gemm.ops import grouped_matmul
+    from repro_torch.kernels.moe_gemm.ops import (grouped_matmul,
+                                                  grouped_swiglu)
     from repro_torch.kernels.paged_attention.ops import paged_attention
     gen = torch.Generator().manual_seed(0)
 
@@ -452,6 +453,8 @@ def test_meta_calls_launch_nothing():
             m(bt), m(lens), q_offset=m(lens - 1)),
         "grouped_matmul": lambda m: grouped_matmul(m(r(3, 4, 8)),
                                                    m(r(3, 6, 8))),
+        "grouped_swiglu": lambda m: grouped_swiglu(
+            m(r(3, 4, 8).bfloat16()), m(r(3, 6, 8).bfloat16())),
         "gather_pages": lambda m: kv.gather_pages(m(r(5, 4, 2, 8)), m(i)),
         "scatter_pages": lambda m: kv.scatter_pages(m(r(5, 4, 2, 8)), m(i),
                                                     m(r(2, 4, 2, 8))),
@@ -479,6 +482,36 @@ def test_meta_calls_launch_nothing():
         assert dispatch.COSTS[op]["bytes"] > 0, op
     with pytest.raises(ValueError, match="mixed"):
         grouped_matmul(r(3, 4, 8), r(3, 6, 8).to("meta"))
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+def test_meta_grouped_swiglu_tallies_its_work(with_counts):
+    """On `meta` the fused w13 + SwiGLU stands in for #2 with its epilogue:
+    2 E C 2I D operations (every row filled), bytes of x, w13, the I-wide
+    output and the counts; fp32 goes the unfused way (#2's own tally)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.moe_gemm.ops import grouped_swiglu
+    E, C, D, I = 6, 16, 64, 40
+    bf = torch.bfloat16
+    x = torch.empty(E, C, D, dtype=bf, device="meta")
+    w13 = torch.empty(E, 2 * I, D, dtype=bf, device="meta")
+    counts = torch.empty(E, dtype=torch.int32, device="meta") \
+        if with_counts else None
+    dispatch.reset_costs()
+    dispatch.reset_counts()
+    out = grouped_swiglu(x, w13, counts)
+    assert out.device.type == "meta" and out.shape == (E, C, I)
+    assert out.dtype == bf and sum(dispatch.COUNTS.values()) == 0
+    want = 2 * (E * C * D + E * 2 * I * D + E * C * I) \
+        + (4 * E if with_counts else 0)
+    assert dispatch.COSTS == {"grouped_swiglu": {
+        "calls": 1, "flops": float(2 * E * C * 2 * I * D),
+        "bytes": float(want)}}
+    dispatch.reset_costs()
+    grouped_swiglu(x.float(), w13.float(), counts)
+    assert set(dispatch.COSTS) == {"grouped_matmul"}
+    assert dispatch.COSTS["grouped_matmul"]["flops"] == 2 * E * C * 2 * I * D
+    dispatch.reset_costs()
 
 
 def test_attention_worst_case_work():

@@ -157,12 +157,15 @@ def test_kernel_wrappers_do_not_fall_back():
     """A kernel wrapper given tensors off the card raises instead of
     running the plain version; the dispatchers refuse mixed devices."""
     from repro_torch.kernels import dispatch
-    from repro_torch.kernels.moe_gemm.kernel import grouped_matmul_cuda
+    from repro_torch.kernels.moe_gemm.kernel import (grouped_matmul_cuda,
+                                                     grouped_swiglu_cuda)
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_cuda
     x = torch.zeros(2, 4, 64)
     with pytest.raises(ValueError, match="CUDA"):
         grouped_matmul_cuda(x, torch.zeros(2, 8, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_swiglu_cuda(x.bfloat16(), torch.zeros(2, 8, 64).bfloat16())
     i32 = torch.int32
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention_cuda(torch.zeros(1, 1, 1, 2, 64),

@@ -147,3 +147,40 @@ def test_grouped_matmul_counts_zero_rows_past_load():
     assert not out[0].any() and not out[1, 3:].any()
     torch.testing.assert_close(out[1, :3], x[1, :3] @ w[1].T)
     torch.testing.assert_close(out[2], x[2] @ w[2].T)
+
+
+# (E, C, D, I): each config's w13 at its serve shapes cut by 32 (qwen3-235b
+# EP: 128 rank-experts, C 256, D 4096, I 1536; TP: 256, C 32, I 768;
+# qwen2-moe EP: 60, C 128, D 2048, I 1408; TP: 120, C 32, I 704), and a
+# half-width past one 64-row tile that is no multiple of 64
+SWIGLU_SHAPES = {"qwen3_ep": (4, 8, 128, 48), "qwen3_tp": (8, 4, 128, 24),
+                 "qwen2_ep": (2, 8, 64, 44), "qwen2_tp": (4, 4, 64, 22),
+                 "ragged_half": (3, 6, 96, 70)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("load", ["none", "zero", "partial", "full"])
+@pytest.mark.parametrize("shape", list(SWIGLU_SHAPES))
+def test_grouped_swiglu_plain_is_the_unfused_composition(shape, load, dtype):
+    """grouped_swiglu on the CPU equals grouped_matmul_ref followed by the
+    plain SiLU times up in fp32, bit for bit; rows past a count are 0."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.moe_gemm.ops import grouped_swiglu
+    from repro_torch.kernels.moe_gemm.ref import grouped_matmul_ref
+    E, C, D, I = SWIGLU_SHAPES[shape]
+    g = torch.Generator().manual_seed(E * C + I)
+    x = torch.randn(E, C, D, generator=g).to(dtype)
+    w13 = (torch.randn(E, 2 * I, D, generator=g) / D ** 0.5).to(dtype)
+    counts = {"none": None, "zero": torch.zeros(E, dtype=torch.long),
+              "partial": torch.arange(E) % (C - 1) + 1,
+              "full": torch.full((E,), C)}[load]
+    h = grouped_matmul_ref(x, w13, counts).float()
+    want = (F.silu(h[..., :I]) * h[..., I:]).to(dtype)
+    got = grouped_swiglu(x, w13, counts)
+    assert got.shape == (E, C, I) and got.dtype == dtype
+    assert torch.equal(got, want)
+    if counts is not None:
+        past = torch.arange(C)[None, :] >= counts[:, None]
+        assert not got[past].any()
+        assert got[~past].any() or not (~past).any()

@@ -246,6 +246,36 @@ def test_gmm_counters_equal_the_work_from_counts():
     assert tracing.read_device() == {"gmm.bytes": 0.0, "gmm.flops": 0.0}
 
 
+def test_gmm_counters_count_the_swiglu_epilogue_in_bf16():
+    """In bf16 the FFN's first GEMM is #2 with its SwiGLU epilogue: its
+    weights (2I rows) and each routed row read D wide but written I wide,
+    2 x rows x D x 2I FLOPs; the plain path counts what the kernel does."""
+    cfg = port_tiny_moe()
+    E, C, D, I, W2 = 6, 8, 16, 12, 12
+    g = torch.Generator().manual_seed(1)
+    bf = torch.bfloat16
+    xd = torch.randn(E, C, D, generator=g).to(bf)
+    w13 = torch.randn(E, 2 * I, D, generator=g).to(bf)
+    w2 = torch.randn(E, D, W2, generator=g).to(bf)
+    counts = torch.tensor([3, 0, 8, 1, 0, 11])
+    tracing.enable()
+    tracing.prepare("cpu")
+    tracing.reset_device()
+    _grouped_ffn_local(cfg, w13, w2, xd, counts)
+    got = tracing.read_device()
+    b = 2                                          # bfloat16
+    nbytes = flops = 0
+    for c in counts.tolist():
+        if c == 0:
+            continue
+        r = min(c, C)
+        nbytes += 2 * I * D * b + r * (D + I) * b
+        nbytes += D * W2 * b + r * (W2 + D) * b
+        flops += 2 * r * D * 2 * I + 2 * r * W2 * D
+    assert got == {"gmm.bytes": float(nbytes), "gmm.flops": float(flops)}
+    tracing.reset_device()
+
+
 def test_device_counters_outlive_the_tracer_and_flag_uncounted_replays():
     """The counter a graph is captured with is the module's, never freed:
     a tracer turned off and dropped leaves it where it was. A graph
