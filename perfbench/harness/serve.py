@@ -34,8 +34,11 @@ COUNTERS = ("prefill_tokens", "decode_tokens", "decode_substeps",
 
 
 def model_config(m: dict):
+    """The port's frozen `ModelConfig` of a config file's "model"; a list
+    there (a per-layer pattern) arrives as a tuple."""
     from repro_torch.models.common import ModelConfig
-    kw = {k: v for k, v in m.items() if k != "dtype"}
+    kw = {k: tuple(v) if isinstance(v, list) else v
+          for k, v in m.items() if k != "dtype"}
     dt = DTYPES[m["dtype"]]
     return ModelConfig(param_dtype=dt, compute_dtype=dt, **kw)
 
@@ -156,18 +159,25 @@ def _grow(a: dict, b: dict) -> dict:
     return {k: b[k] - a[k] for k in a}
 
 
+def _pairs(a: int, b: int, w: int) -> int:
+    """Sum over k in [a, b) of min(k, w); w = 0 is unbounded."""
+    c = b if not w else min(max(w + 1, a), b)
+    return (c - a) * (a + c - 1) // 2 + (b - c) * w
+
+
 class _AttnTally:
     """Kernel #1's work in one step, from the requests' positions before
-    and after it: the K/V bytes that the rows' observed lengths need (read
-    once), Q in and O out once, and the attention FLOPs, for every layer."""
+    and after it, over the architecture's attention sites
+    (`arch/<name>.py`, `attn_sites`): the K/V bytes that the rows'
+    observed lengths need (a prefill chunk reads each position once, each
+    decode substep its own), Q in and O out once, and the attention
+    FLOPs, each site's layers at its window (0: the whole context)."""
 
-    def __init__(self, m: dict):
-        L, H, K = m["num_layers"], m["num_heads"], m["num_kv_heads"]
-        dh = m["head_dim"] or m["d_model"] // H
-        b = DTYPES[m["dtype"]].itemsize
-        self.kv_tok = L * 2 * K * dh * b          # K and V of one position
-        self.qo_tok = L * 2 * H * dh * b          # one query in, one out
-        self.flop_key = L * 4 * H * dh            # QK^T and PV per key
+    def __init__(self, sites: list):
+        self.sites = [(s["layers"] * s["kv_bytes_per_pos"],
+                       s["layers"] * s["qo_bytes_per_tok"],
+                       s["layers"] * s["flops_per_key"], s["window"])
+                      for s in sites]
 
     @staticmethod
     def where(reqs) -> list:
@@ -180,16 +190,19 @@ class _AttnTally:
             P = q.prompt_len
             if pp1 > pp0:                         # a prefill chunk
                 n = pp1 - pp0
-                nbytes += pp1 * self.kv_tok + n * self.qo_tok
-                flops += self.flop_key * (n * (pp0 + pp1 + 1) / 2)
+                for kv, qo, fk, w in self.sites:
+                    read = pp1 - max(0, pp0 - w + 1) if w else pp1
+                    nbytes += read * kv + n * qo
+                    flops += fk * _pairs(pp0 + 1, pp1 + 1, w)
                 if pp1 >= P and pp0 < P:
                     o0 += 1                       # the prefill's own token
             dec = o1 - o0
             if dec > 0:                           # decode substeps
                 lo = P + o0                       # keys read by the first
-                keys = dec * lo + dec * (dec - 1) / 2
-                nbytes += keys * self.kv_tok + dec * self.qo_tok
-                flops += self.flop_key * keys
+                for kv, qo, fk, w in self.sites:
+                    keys = _pairs(lo, lo + dec, w)
+                    nbytes += keys * kv + dec * qo
+                    flops += fk * keys
         return nbytes, flops
 
 
@@ -219,7 +232,7 @@ def run_window(eng, cell, seed: int, seconds: float, trace: bool,
         after = n_slices * (slice_s + gap_s) + 5.0
         after += sum(float(d) for d, _ in t.get("cycle") or [])
     sched = [] if closed else open_schedule(t, seed, vocab, seconds + after)
-    tally = _AttnTally(m)
+    tally = _AttnTally(cell.arch.attn_sites(m))
     if cuda:
         torch.cuda.synchronize()
     win = Window(t0=0.0, t1=0.0, seconds=seconds)

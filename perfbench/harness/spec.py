@@ -4,16 +4,23 @@ its traffic file and the cell's own file, read as data.
 A cell named `<config>.<traffic>` in `BENCHMARK.json` points at
 `configs/<config>.json` (the model, the deployment and the cache) and
 `traffic/<traffic>.json` (the generator's parameters and the engine
-settings that go with the traffic). `cells/<cell>.json`, where present,
-holds what belongs to that pair alone: an arrival rate found by a sweep on
-the chip, and the limits of the output check. A later cell is new files
+settings that go with the traffic). The configuration's `"arch"` names
+its architecture module, `arch/<arch>.py` (`gqa_moe` where it names
+none), which holds all that the harness computes from the model's
+shapes; its kernel names join the base table here, so a clash stops
+the cell as it loads. `cells/<cell>.json`, where present, holds what
+belongs to that pair alone: an arrival rate found by a sweep on the
+chip, and the limits of the output check. A later cell is new files
 and new entries; nothing here names a cell.
 """
 from __future__ import annotations
 
+import importlib
 import json
 from dataclasses import dataclass
 from pathlib import Path
+
+from harness import trace
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
@@ -35,10 +42,17 @@ def _merge(base: dict, over: dict) -> dict:
     return out
 
 
+def arch_module(config: dict):
+    """The configuration's architecture module, `arch/<name>.py`."""
+    return importlib.import_module(f"arch.{config.get('arch', 'gqa_moe')}")
+
+
 @dataclass
 class Cell:
     name: str
     config: dict              # configs/<config>.json
+    arch: object              # its architecture module, arch/<name>.py
+    kernel_groups: dict       # trace.GROUPS with the module's KERNEL_GROUPS
     traffic: dict             # traffic/<traffic>.json, the cell's file on top
     limits: dict              # the output check's limits
     chips: int
@@ -66,7 +80,10 @@ def load_cell(name: str, bench_file: Path | None = None) -> Cell:
     def reports(m):
         return "workloads" not in m or name in m["workloads"]
 
-    return Cell(name=name, config=config, traffic=traffic, limits=limits,
+    arch = arch_module(config)
+    return Cell(name=name, config=config, arch=arch,
+                kernel_groups=trace.groups(arch.KERNEL_GROUPS),
+                traffic=traffic, limits=limits,
                 chips=int(w["chips"]),
                 end_to_end=[m for m in bench["end_to_end"] if reports(m)],
                 per_layer=[m for m in bench["per_layer"] if reports(m)])

@@ -10,6 +10,8 @@ The port's kernels, by the names of their device functions:
   #2 grouped GEMM: gmm_kernel, gmm_wgmma_kernel (csrc/moe_gemm.cu)
   #3-#6 KV page movers: copy_kernel (csrc/kv_pack.cu)
   #7-#10 expert reshard: permute_runs_kernel (csrc/expert_reshard.cu)
+An architecture module adds the names of its own kernels
+(`arch/<name>.py`, `KERNEL_GROUPS`) to this base table (`groups`).
 Everything else the device runs (MoE dispatch and combine, norms, the
 dense products, sampling, PyTorch's own copies) is "other". A name
 matches only as the whole name of a function in the files' top-level
@@ -35,14 +37,30 @@ GROUPS = {
 PORT_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)[<(]")
 
 
-def kernel_group(name: str) -> str:
+def groups(extra: dict) -> dict:
+    """The base table with an architecture's `extra` names added; a name
+    the base table already puts in another group is an error."""
+    clash = {n: (GROUPS[n], g) for n, g in extra.items()
+             if GROUPS.get(n, g) != g}
+    if clash:
+        raise ValueError(f"kernel groups clash with the base table: {clash}")
+    return {**GROUPS, **extra}
+
+
+def kernel_group(name: str, table: dict = GROUPS) -> str:
+    """`name`'s group in `table`. The base table is the default only for
+    callers outside the harness that read the port's own kernels (the
+    port's tracing tests); the harness passes the cell's table."""
     m = PORT_KERNEL.match(name)
-    return GROUPS.get(m.group(1), "other") if m else "other"
+    return table.get(m.group(1), "other") if m else "other"
 
 
-def reduce_slice(prof) -> dict:
+def reduce_slice(prof, table: dict = GROUPS) -> dict:
     """Busy and idle microseconds of one profiled slice, device time by
-    kernel group and by name, and idle time by host activity."""
+    kernel group and by name, and idle time by host activity. The harness
+    passes the cell's `table` (`spec.Cell.kernel_groups`); the base-table
+    default is kept only for the port's tracing tests, which call this
+    without a cell."""
     from torch.autograd import DeviceType
     dev, cpu = [], []
     for e in prof.events():
@@ -54,7 +72,7 @@ def reduce_slice(prof) -> dict:
     by_group: dict = defaultdict(float)
     by_name: dict = defaultdict(float)
     for s, e, n in dev:
-        by_group[kernel_group(n)] += e - s
+        by_group[kernel_group(n, table)] += e - s
         by_name[n] += e - s
     dev.sort()
     busy, gaps = 0.0, []
@@ -86,15 +104,16 @@ def reduce_slice(prof) -> dict:
             "n_reads": len(reads)}
 
 
-def reduce_slices(slices) -> dict:
-    """All slices together: sums, with each slice's wall seconds."""
+def reduce_slices(slices, table: dict) -> dict:
+    """All slices together: sums, with each slice's wall seconds; kernels
+    grouped by `table`, the cell's `spec.Cell.kernel_groups`."""
     out = {"busy_us": 0.0, "gaps_us": 0.0, "window_s": 0.0,
            "by_group_us": defaultdict(float), "by_name_us": defaultdict(float),
            "idle_by_us": defaultdict(float), "n_dev": 0, "tokens": 0,
            "attn_bytes": 0.0, "attn_flops": 0.0, "attn_min_s": 0.0,
            "steps": 0, "d": defaultdict(int)}
     for sl in slices:
-        r = reduce_slice(sl.prof)
+        r = reduce_slice(sl.prof, table)
         for k in ("busy_us", "gaps_us", "n_dev"):
             out[k] += r[k]
         for k in ("by_group_us", "by_name_us", "idle_by_us"):

@@ -67,6 +67,7 @@ class Run:
     setup_s: float
     model: dict
     trace: dict | None
+    arch: object              # the cell's architecture module
 
 
 def reader(name: str):
@@ -131,14 +132,13 @@ def main(argv=None) -> int:
 
     # --- set-up: weights, engine, graphs, warm-up traffic --------------------
     t0 = time.perf_counter()
-    w = wmod.make_weights(m, args.seed, dev)
+    w = wmod.make_weights(cell.arch, m, args.seed, dev)
     nbytes = wmod.tree_bytes(w)
     t_w = time.perf_counter() - t0
     t0 = time.perf_counter()
     eng = serve.build_engine(cell, w, args.seed, dev)
-    # the engine keeps its own expert store; the caller's copy goes
-    for k in ("w13", "w2"):
-        w["layers"]["moe"].pop(k)
+    # the engine keeps its own copy of these; the caller's goes
+    wmod.drop(w, cell.arch.engine_owned(m))
     del w
     gc.collect()
     if cuda:
@@ -161,7 +161,8 @@ def main(argv=None) -> int:
     dirs = {}
     for r in win.switches:
         dirs[r.direction] = dirs.get(r.direction, 0) + 1
-    red = trace.reduce_slices(win.slices) if win.slices else None
+    red = (trace.reduce_slices(win.slices, cell.kernel_groups) if win.slices
+           else None)
     for sl in win.slices:
         sl.prof = None
     eng_summary = {
@@ -176,7 +177,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     # --- metrics --------------------------------------------------------------
-    run = Run(win=win, setup_s=setup_s, model=m, trace=red)
+    run = Run(win=win, setup_s=setup_s, model=m, trace=red, arch=cell.arch)
     # every reading goes to the log; the result carries the cell's
     # end-to-end metrics, or with --trace 1 its per-layer ones
     log = {x["name"]: reader(x["name"])(run)
@@ -191,7 +192,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ref = check.reference_module(cell.config)
     seqs, rows, served = check.sequences(pick)
-    wref = wmod.make_weights(m, args.seed, dev)
+    wref = wmod.make_weights(cell.arch, m, args.seed, dev)
     g = check.gaps(ref, m, wref, seqs, rows, served)
     read = check.readings(g)
     lowp = importlib.import_module("reference.lowp")

@@ -54,10 +54,9 @@ def main(argv=None) -> int:
                                       prefill_chunk=args.chunk,
                                       token_budget=args.chunk)
     m = cell.config["model"]
-    w = wmod.make_weights(m, args.seed, args.device)
+    w = wmod.make_weights(cell.arch, m, args.seed, args.device)
     eng = serve.build_engine(cell, w, args.seed, args.device)
-    for k in ("w13", "w2"):
-        w["layers"]["moe"].pop(k)
+    wmod.drop(w, cell.arch.engine_owned(m))
     del w
     gc.collect()
     serve.warm(eng, int(m["vocab_size"]), eng.prefill_chunk)

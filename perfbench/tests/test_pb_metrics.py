@@ -6,6 +6,7 @@ from pathlib import Path
 
 import pytest
 
+from arch import gqa_moe
 from harness.serve import Rec, Span, Window
 
 BENCH = Path(__file__).resolve().parents[1]
@@ -33,6 +34,7 @@ class Run:
     model: dict = None
     trace: dict = None
     cell: object = None
+    arch: object = None
 
 
 def window(recs, t1=10.0):
@@ -89,7 +91,8 @@ def test_trace_readers_and_nothing_to_read():
     run = Run(window([]), trace=red,
               model={"d_model": 8, "num_heads": 2, "num_kv_heads": 1,
                      "head_dim": 4, "num_experts": 4, "top_k": 2,
-                     "d_expert": 8, "num_layers": 1, "vocab_size": 16})
+                     "d_expert": 8, "num_layers": 1, "vocab_size": 16},
+              arch=gqa_moe)
     assert reader("idle_share")(run) == pytest.approx(25.0)
     assert reader("other_dev_us_per_tok")(run) == pytest.approx(3.0)
     assert reader("gmm_dev_us_per_tok")(run) == pytest.approx(2.0)

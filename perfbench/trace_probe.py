@@ -218,10 +218,9 @@ def main(argv=None) -> int:
     torch.manual_seed(args.seed & wmod.SEED_MASK)
     m = cell.config["model"]
     tracer = tracing.enable() if args.spans else None
-    w = wmod.make_weights(m, args.seed, "cuda")
+    w = wmod.make_weights(cell.arch, m, args.seed, "cuda")
     eng = serve.build_engine(cell, w, args.seed, "cuda")
-    for k in ("w13", "w2"):
-        w["layers"]["moe"].pop(k)
+    wmod.drop(w, cell.arch.engine_owned(m))
     del w
     gc.collect()
     torch.cuda.empty_cache()
@@ -245,11 +244,12 @@ def main(argv=None) -> int:
             for n, v in r[k].items():
                 sp[k][n] += v
         sl.prof = Filtered(sl.prof)
-    red = trace.reduce_slices(win.slices)
+    red = trace.reduce_slices(win.slices, cell.kernel_groups)
     for sl in win.slices:
         sl.prof = None
     run = type("Run", (), {})()
     run.win, run.setup_s, run.model, run.trace = win, setup_s, m, red
+    run.arch = cell.arch
     out = {"workload": args.workload, "seed": args.seed,
            "spans": args.spans,
            "card": torch.cuda.get_device_name(0),
