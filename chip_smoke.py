@@ -1884,8 +1884,8 @@ def teacher_forced(eng, reqs, outs, chunk: int, ids=None, lead: int = 0,
             return step(*args)
         inner = moe.route
 
-        def route(c, w, x):
-            out = inner(c, w, x)
+        def route(c, w, x, bias=None):
+            out = inner(c, w, x, bias)
             seen.append(out[1])
             return out
 
@@ -3142,8 +3142,8 @@ def pin_routes(pinned, what: str):
         return
     inner, i = moe.route, [0]
 
-    def route(c, w, x):
-        _, eids, probs = inner(c, w, x)
+    def route(c, w, x, bias=None):
+        _, eids, probs = inner(c, w, x, bias)
         e = pinned[i[0]].to(eids.device)
         i[0] += 1
         check(e.shape == eids.shape, f"{what}: pinned routes "
@@ -3241,8 +3241,8 @@ def bf16_baseline(cfg, params, reqs, what: str, lay=None) -> tuple:
     from repro_torch.models.transformer import lm_forward
     inner, seen = moe.route, []
 
-    def route(c, w, x):
-        out = inner(c, w, x)
+    def route(c, w, x, bias=None):
+        out = inner(c, w, x, bias)
         seen.append(frozenset(out[1][-1].tolist()))
         return out
 
@@ -3994,8 +3994,8 @@ def decode_step_bound(cfg, params, reqs, stream: dict, lay, kv_bytes_tok,
     from repro_torch.models.transformer import lm_forward
     inner, seen = moe.route, []
 
-    def route(c, w, x):
-        out = inner(c, w, x)
+    def route(c, w, x, bias=None):
+        out = inner(c, w, x, bias)
         seen.append(out[1].cpu())
         return out
 
@@ -5747,8 +5747,8 @@ def loss_and_grads(cfg, params, batch, lay):
     from repro_torch.training.optimizer import leaves, tree_map
     inner, seen = moe.route, []
 
-    def route(c, w, x):
-        out = inner(c, w, x)
+    def route(c, w, x, bias=None):
+        out = inner(c, w, x, bias)
         seen.append(out[1].detach())
         return out
 
@@ -6542,6 +6542,176 @@ def dh256_build_lines(text: str) -> list:
     return out
 
 
+
+def phase_mla(results: dict) -> None:
+    """Kernel #1's latent-attention path (paged_mla_kernel, csrc/
+    paged_attention.cu) at moonlight-16b-a3b's shapes (latent 512 + rope
+    64, bf16, pages of 16, G = 2 stacked ranks): a decode step of the
+    cell's largest rung in ep (16 rows a rank, 16 heads) and in tp (32
+    rows, 8 heads a rank) at KV lengths drawn as the rollout's (prompt
+    plus output, 100-1200), and a 64-token prefill chunk; each held to the
+    plain version (bf16 tolerance, a planted wrong scale caught), timed by
+    CUDA events beside the plain version on the card, beside PyTorch's SDPA
+    over the latent gathered beforehand (K the whole latent, V its first
+    512 columns), and beside the least time its bytes or its FLOPs allow
+    (3.35 TB/s, 989 TFLOP/s). Then the whole model serves in ep and in tp
+    and one decode step is counted: its launches of #1. Prints one row per
+    case."""
+    import math
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.paged_attention.ops import paged_mla
+    from repro_torch.kernels.paged_attention.ref import paged_mla_ref
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(30)
+    C, dk, page, maxp = 512, 576, 16, 150
+    scale = 1 / math.sqrt(192)
+    for name, G, B, Sq, H in (("decode_ep", 2, 16, 1, 16),
+                              ("decode_tp", 2, 32, 1, 8),
+                              ("prefill_chunk_ep", 2, 1, 64, 16)):
+        pages = G * B * maxp + 1
+        q = torch.randn(G, B, Sq, H, dk, device=dev).bfloat16()
+        pool = torch.randn(G, pages, page, dk, device=dev).bfloat16()
+        bt = torch.from_numpy(rng.permutation(pages - 1)[:G * B * maxp]
+                              .reshape(G, B, maxp) + 1).int().to(dev)
+        kv = torch.from_numpy(rng.integers(100 + Sq, 1201, (G, B))).int()
+        kv = kv.to(dev)
+        qo = kv - Sq
+        dispatch.reset_counts()
+        out = paged_mla(q, pool, bt, kv, q_offset=qo, v_dim=C, scale=scale)
+        torch.cuda.synchronize()
+        launches = dispatch.calls("paged_attention")
+
+        def plain(s=scale):
+            return torch.stack([paged_mla_ref(
+                q[g], pool[g], bt[g], kv[g], q_offset=qo[g], v_dim=C,
+                scale=s) for g in range(G)])
+        ref = plain()
+        err = float((out.float() - ref.float()).abs().max())
+        check(err <= BF16_TOL * max(1.0, float(ref.float().abs().max())),
+              f"paged_mla {name}: max |err| {err}")
+        bad = float((plain(1 / math.sqrt(dk)).float() - out.float()).abs()
+                    .max())
+        check(bad > BF16_TOL, f"paged_mla {name}: a wrong scale went "
+                              f"unseen ({bad})")
+        ms = cuda_ms(lambda: paged_mla(q, pool, bt, kv, q_offset=qo,
+                                       v_dim=C, scale=scale))
+        plain_ms = cuda_ms(plain, iters=3, reps=3)
+        # SDPA on the latent gathered beforehand, every head over it
+        gi = torch.arange(G, device=dev)[:, None, None]
+        lat = pool[gi, bt.long()].reshape(G * B, 1, maxp * page, dk)
+        kd = lat.expand(-1, H, -1, -1).contiguous()
+        vd = kd[..., :C].contiguous()
+        qd = q.reshape(G * B, Sq, H, dk).transpose(1, 2).contiguous()
+        kpos = torch.arange(maxp * page, device=dev)
+        qpos = qo.reshape(-1, 1).long() + torch.arange(Sq, device=dev)
+        mask = ((kpos[None, None] < kv.reshape(-1, 1, 1))
+                & (kpos[None, None] <= qpos[..., None]))[:, None]
+        lib = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                             scale=scale)
+        lib_err = float((lib.transpose(1, 2).reshape(out.shape).float()
+                         - ref.float()).abs().max())
+        check(lib_err <= BF16_TOL * max(1.0, float(ref.float().abs().max())),
+              f"paged_mla {name}: SDPA computes another function "
+              f"({lib_err})")
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask, scale=scale))
+        live = int(kv.sum())
+        nbytes = live * dk * 2 + G * B * Sq * H * (dk + C) * 2
+        vis = sum(min(n, o + i + 1) for n, o in zip(kv.flatten().tolist(),
+                                                     qo.flatten().tolist())
+                  for i in range(Sq))
+        flops = vis * 2 * (dk + C) * H
+        bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+        row = {"name": f"paged_mla.{name}", "G": G, "B": B, "Sq": Sq,
+               "H": H, "kv_mean": live / (G * B), "launches": launches,
+               "max_abs_err": err, "wrong_scale_err": bad, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_max_abs_err": lib_err, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bound_share": bound_ms / ms}
+        results.setdefault("paged_mla", []).append(row)
+        print(json.dumps(row), flush=True)
+        del q, pool, lat, kd, vd, qd, mask, lib, out, ref
+    mla_serve_launches(results)
+
+
+def mla_serve_launches(results: dict) -> None:
+    """moonlight-16b-a3b whole (27 layers, bf16, weights drawn on the card)
+    serves 16 prompts eagerly from ep; once every request is decoding, the
+    launch counts are reset and one decode step is counted, then again
+    after a live switch to tp: #1 must launch once a layer (the latent
+    path of every layer, the split-KV combine inside the same call), #2
+    once a MoE layer for w13 and once for w2. The routed experts' global
+    copy goes once the engine holds them, as in the benchmark (both packs
+    and the global tree would not fit the card)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.engine import EngineConfig, MoebiusEngine
+    from repro_torch.serving.kvcache import CacheConfig
+    from repro_torch.serving.request import Request
+
+    cfg = get_config("moonlight-16b-a3b")
+    cc = CacheConfig(page_size=16, pages_ep=1024, max_pages_per_req=80)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(64, 200)))
+               .tolist() for _ in range(16)]
+    params = init_params(cfg, SEED, device="cuda")
+    L, Lm = cfg.num_layers, cfg.num_moe_layers
+    eng = MoebiusEngine(cfg, (1, 2), cc, params_global=params,
+                        ecfg=EngineConfig(start_layout="ep", prefill_chunk=64,
+                                          seed=SEED, graphs=False,
+                                          policy=static_policy(),
+                                          **NO_CACHE))
+    for k in ("w13", "w2"):
+        del params["layers"]["moe"][k]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=256,
+                           arrival_s=0.0))
+    sc = eng.sched
+    steps = 0
+    while sc.pending or sc.waiting or sc.prefilling:
+        eng.step()
+        steps += 1
+        check(steps < 200, "mla serve: prefill made no progress")
+    for layout in ("ep", "tp"):
+        if layout == "tp":
+            check(eng.execute_switch("tp"), "mla serve: no switch to tp")
+        torch.cuda.synchronize()
+        dispatch.reset_counts()
+        d0 = eng.metrics.dispatches
+        eng.step()
+        torch.cuda.synchronize()
+        disp = eng.metrics.dispatches - d0
+        n_att = dispatch.calls("paged_attention")
+        n_swi = dispatch.calls("grouped_swiglu")
+        n_gmm = dispatch.calls("grouped_matmul")
+        row = {"name": f"paged_mla.serve_decode_{layout}",
+               "rows": len(sc.running), "dispatches": disp,
+               "paged_attention": n_att, "grouped_swiglu": n_swi,
+               "grouped_matmul": n_gmm,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(json.dumps(row), flush=True)
+        results.setdefault("paged_mla", []).append(row)
+        check(disp == 1 and n_att == L and n_swi == Lm and n_gmm == Lm,
+              f"mla serve {layout}: one decode step launched {n_att} #1, "
+              f"{n_swi} + {n_gmm} #2 over {disp} dispatches ({L} layers, "
+              f"{Lm} MoE)")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from the root of a checkout (src/repro_torch "
@@ -6590,7 +6760,8 @@ def main() -> int:
               ("families", lambda: phase_families(results)),
               ("vlm", lambda: phase_vlm(results)),
               ("train", lambda: phase_train(results)),
-              ("dryrun", lambda: phase_dryrun(results))]
+              ("dryrun", lambda: phase_dryrun(results)),
+              ("mla", lambda: phase_mla(results))]
     results: dict = {"launches": {}}
     t_run = time.time()
     took = {}

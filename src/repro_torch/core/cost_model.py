@@ -66,6 +66,7 @@ def decode_step_time(cfg: ModelConfig, layout: str, B: int, kv_len: int,
     H, K = cfg.num_heads, cfg.num_kv_heads
     L = cfg.num_layers
     bpe = hw.bytes_per_el
+    kv_w = cfg.kv_planes * cfg.kv_dim      # K and V (or one latent) a head
 
     attn_w = (D * H * dh + 2 * D * K * dh + H * dh * D) * bpe
     dense_mlp_w = (3 if cfg.mlp_type == "swiglu" else 2) * D * cfg.d_ff * bpe
@@ -80,7 +81,7 @@ def decode_step_time(cfg: ModelConfig, layout: str, B: int, kv_len: int,
         # operating point.
         tok_rank = B                       # batch replicated over the group
         attn_w_rank = attn_w / G
-        kv_read = B * kv_len * gi.kv_local * dh * 2 * bpe
+        kv_read = B * kv_len * gi.kv_local * kv_w * bpe
         attn_flops = 2 * B * (attn_w / bpe) / G \
             + 2 * B * kv_len * gi.q_local * dh * 2
         if cfg.is_moe:
@@ -106,7 +107,7 @@ def decode_step_time(cfg: ModelConfig, layout: str, B: int, kv_len: int,
     elif spec.dense_tp:
         tok_rank = B                       # full batch on every rank
         attn_w_rank = attn_w / G
-        kv_read = B * kv_len * gi.kv_local * dh * 2 * bpe
+        kv_read = B * kv_len * gi.kv_local * kv_w * bpe
         if cfg.is_moe:
             act = _expected_activated(E, k, B)
             ffn_w_rank = act * expert_w / G + shared_w / G
@@ -122,7 +123,7 @@ def decode_step_time(cfg: ModelConfig, layout: str, B: int, kv_len: int,
     else:  # EP: DP attention, experts local
         tok_rank = B / G
         attn_w_rank = attn_w                 # replicated attention
-        kv_read = tok_rank * kv_len * K * dh * 2 * bpe
+        kv_read = tok_rank * kv_len * K * kv_w * bpe
         if cfg.is_moe:
             lay = expert_layout(cfg, G, EP)
             E_loc = E // lay.ep

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.mla import absorbed_weights
 from repro_torch.models.moe import (ExpertLayout, make_expert_layout,
                                     pack_experts, pack_w13)
 
@@ -230,12 +231,14 @@ def expert_store_shapes(cfg: ModelConfig, layout, G: int,
                         chips: int | None = None) -> dict:
     """Shapes of the stacked rank-major expert store of `layout` on a
     G-rank group: w13 (L, Ge, E_loc, 2I/tp, D), w2 (L, Ge, E_loc, D, I/tp),
-    where Ge is the layout's expert group: G, or `chips` (the full Dd x G
-    mesh) for a full-mesh layout. Every (layout, G) holds the same
+    over the L = num_moe_layers layers that route, where Ge is the
+    layout's expert group: G, or `chips` (the full Dd x G mesh) for a
+    full-mesh layout. Every (layout, G) holds the same
     elements, so one flat buffer serves every resident layout and world as
     a view."""
     lay = get_layout(layout).expert_layout(cfg, G, chips)
-    L, E, I, D = cfg.num_layers, cfg.num_experts, cfg.d_expert, cfg.d_model
+    L, E, I, D = cfg.num_moe_layers, cfg.num_experts, cfg.d_expert, \
+        cfg.d_model
     e_loc, i_loc = E // lay.ep, I // lay.tp_inner
     return {"w13": (L, lay.G, e_loc, 2 * i_loc, D),
             "w2": (L, lay.G, e_loc, D, i_loc)}
@@ -370,9 +373,9 @@ def pack_params(cfg: ModelConfig, params: dict, layout: str, G: int,
                                  spec.expert_kind)
         params = dict(params)
         params["layers"] = {**layers, "moe": _pack_moe(layers["moe"], lay)}
-    elif not cfg.is_moe and "mlp" in layers:
+    if cfg.num_dense_layers and "mlp" in layers:
         params = dict(params)
-        params["layers"] = {**layers,
+        params["layers"] = {**params["layers"],
                             "mlp": mlp_rank_major(layers["mlp"], G)}
     return params
 
@@ -385,7 +388,10 @@ def attn_rank_major(cfg: ModelConfig, ap: dict, G: int) -> dict:
     """Stacked attention params (L?, ...) -> TP rank-major (L?, G, ...).
 
     Head blocks replicate when heads < G; wo is pre-scaled by 1/q_rep so the
-    group psum of partial outputs is exact."""
+    group psum of partial outputs is exact. Latent attention: see
+    `mla_rank_major`."""
+    if cfg.is_mla:
+        return mla_rank_major(cfg, ap, G)
     gi = group_info(cfg, G)
     dh = cfg.dh
     H, K = cfg.num_heads, cfg.num_kv_heads
@@ -417,6 +423,38 @@ def attn_rank_major(cfg: ModelConfig, ap: dict, G: int) -> dict:
         for n in ("q_norm", "k_norm"):
             x = ap[n]
             out[n] = x[..., None, :].expand(*x.shape[:-1], G, x.shape[-1])
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def mla_pack(cfg: ModelConfig, ap: dict) -> dict:
+    """Stacked MLA params -> the absorbed path's replicated form (EP):
+    wq, wkv_a, kv_norm, wo as stored, wkv_b split into its per-head
+    factors w_uk_t (L, H, nope, C) and w_uv (L, H, C, v)."""
+    out = {k: ap[k] for k in ("wq", "wkv_a", "kv_norm", "wo")}
+    out.update(absorbed_weights(cfg, ap["wkv_b"]))
+    return out
+
+
+def mla_rank_major(cfg: ModelConfig, ap: dict, G: int) -> dict:
+    """Stacked MLA params -> TP rank-major (L, G, ...): wq, w_uk_t, w_uv
+    and wo sliced by heads (H/G a rank), wkv_a and kv_norm replicated
+    (every rank writes and reads the whole latent: kv_rep = G)."""
+    H = cfg.num_heads
+    if H % G:
+        raise ValueError(f"latent attention: {H} heads do not split over "
+                         f"G={G} ranks")
+    Hl = H // G
+    pk = mla_pack(cfg, ap)
+    L = pk["wq"].shape[:-2]
+    D = cfg.d_model
+    dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    wq = pk["wq"].reshape(*L, D, G, Hl * dq).movedim(-2, -3)
+    wo = pk["wo"].reshape(*L, G, Hl * cfg.v_head_dim, D)
+    out = {"wq": wq, "wkv_a": pk["wkv_a"], "kv_norm": pk["kv_norm"],
+           "wo": wo}
+    for k in ("w_uk_t", "w_uv"):
+        w = pk[k]
+        out[k] = w.reshape(*L, G, Hl, *w.shape[-2:])
     return {k: v.contiguous() for k, v in out.items()}
 
 

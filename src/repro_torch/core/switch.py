@@ -474,7 +474,7 @@ def copy_kv_pages_host(cfg: ModelConfig, cc: CacheConfig, src, dst,
     dst_views = [dst_host[g].view(dv) for g in range(G_dst)]
     for spool, sp, dpool, dp in moves:
         if src_s.kv_per_rank:
-            data = src_views[spool][lo:hi, :, sp]     # (Lc,2,page,K,dh)
+            data = src_views[spool][lo:hi, :, sp]     # (Lc,P,page,K,dh)
         else:
             data = torch.cat([src_views[g][lo:hi, :, sp]
                               for g in range(0, G_src, gs.kv_rep)], dim=3)
@@ -541,19 +541,19 @@ def _kv_migrate_body(cfg: ModelConfig, cc: CacheConfig, G: int,
     dim, so a call is one gather launch and one scatter launch.
     """
     gi = group_info(cfg, G)
-    ep_shape = cc.view_shape(cfg, G, EP)     # (L,2,pages_ep,page,K,dh)
-    tp_shape = cc.view_shape(cfg, G, TP)     # (L,2,pages_tp,page,Kl,dh)
-    L, _, pages_ep, page, K, dh = ep_shape
+    ep_shape = cc.view_shape(cfg, G, EP)     # (L,P,pages_ep,page,K,dh)
+    tp_shape = cc.view_shape(cfg, G, TP)     # (L,P,pages_tp,page,Kl,dh)
+    L, P, pages_ep, page, K, dh = ep_shape
     pages_tp = tp_shape[2]
     Kl, kv_rep = gi.kv_local, gi.kv_rep
     nb = K // Kl                             # head blocks
     Lc = hi - lo
-    R = 2 * Lc                               # (layer, K/V) rows
+    R = P * Lc                               # (layer, plane) rows
     M_ep, M_tp = page * K * dh, page * Kl * dh
 
     def ep_to_tp(kv_src, kv_dst, src_pages, dst_pages, valid):
         Dd = kv_src.shape[0]
-        pool = kv_src.view(Dd * G, 2 * L, pages_ep, M_ep)[:, 2 * lo:2 * hi]
+        pool = kv_src.view(Dd * G, P * L, pages_ep, M_ep)[:, P * lo:P * hi]
         # fused page pack: every (rank, layer, K/V) row in ONE launch
         gathered = gather_pages_rows(pool, src_pages.reshape(Dd * G, pmax))
         # heads -> per-dst slices: dst rank r takes head block r // kv_rep
@@ -567,15 +567,15 @@ def _kv_migrate_body(cfg: ModelConfig, cc: CacheConfig, G: int,
             ranks.all_to_all_into(send, vals[d].movedim(2, 1))
         # dst page ids from all sources, the same on every dst rank
         dp = torch.where(valid, dst_pages, 0).reshape(Dd, 1, G * pmax)
-        dst = kv_dst.view(Dd * G, 2 * L, pages_tp, M_tp)
+        dst = kv_dst.view(Dd * G, P * L, pages_tp, M_tp)
         scatter_pages_rows(dst, dp.expand(Dd, G, G * pmax).reshape(
             Dd * G, G * pmax), vals.view(Dd * G, R, G * pmax, M_tp),
-            row0=2 * lo)
+            row0=P * lo)
         return kv_dst
 
     def tp_to_ep(kv_src, kv_dst, src_pages, dst_pages, valid):
         Dd = kv_src.shape[0]
-        pool = kv_src.view(Dd * G, 2 * L, pages_tp, M_tp)[:, 2 * lo:2 * hi]
+        pool = kv_src.view(Dd * G, P * L, pages_tp, M_tp)[:, P * lo:P * hi]
         # every rank holds head slices of ALL pages; gather every dst's
         sp = torch.where(valid, src_pages, 0).reshape(Dd, 1, G * pmax)
         gathered = gather_pages_rows(
@@ -590,9 +590,9 @@ def _kv_migrate_body(cfg: ModelConfig, cc: CacheConfig, G: int,
             # reassemble K heads from the G/kv_rep representative sources
             vals[d].copy_(recv[:, ::kv_rep].permute(0, 2, 3, 4, 1, 5, 6))
         dp = torch.where(valid, dst_pages, 0)        # my new pages
-        dst = kv_dst.view(Dd * G, 2 * L, pages_ep, M_ep)
+        dst = kv_dst.view(Dd * G, P * L, pages_ep, M_ep)
         scatter_pages_rows(dst, dp.reshape(Dd * G, pmax),
-                           vals.view(Dd * G, R, pmax, M_ep), row0=2 * lo)
+                           vals.view(Dd * G, R, pmax, M_ep), row0=P * lo)
         return kv_dst
 
     return ep_to_tp if direction == "ep_to_tp" else tp_to_ep

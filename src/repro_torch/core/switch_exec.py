@@ -70,7 +70,7 @@ from repro_torch.kernels.kv_pack.ops import gather_pages_rows
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.moe import make_expert_layout
 from repro_torch.serving.kvcache import (CacheConfig, PageAllocator,
-                                         num_kv_layers)
+                                         num_kv_layers, page_bytes_written)
 from repro_torch.serving.paging import PrefixCache
 
 
@@ -83,8 +83,11 @@ def _pow2_pad(n: int, lo: int = 8) -> int:
 
 def _layer_chunks(cfg: ModelConfig, Lk: int, chunk_layers: int) -> list:
     """Even [lo, hi) splits of the expert-stack and KV-layer ranges:
-    [(w_lo, w_hi, kv_lo, kv_hi)], `chunk_layers` layers a chunk."""
-    Lw = cfg.num_layers if cfg.is_moe else 0
+    [(w_lo, w_hi, kv_lo, kv_hi)], `chunk_layers` layers a chunk. The two
+    ranges index their own stacks: the store holds the num_moe_layers
+    layers that route (a model with leading dense layers has fewer than
+    it has KV layers), so chunk i moves the i-th share of each."""
+    Lw = cfg.num_moe_layers
     Lref = max(Lw, Lk, 1)
     n = max(1, -(-Lref // max(1, chunk_layers)))
     return [(Lw * i // n, Lw * (i + 1) // n, Lk * i // n, Lk * (i + 1) // n)
@@ -117,6 +120,7 @@ class SwitchStats:
     chunks: int = 1
     live_requests: int = 0
     plan_width: int = 0     # padded pages per plan row the KV movers ran at
+    kv_bytes: int = 0       # bytes the KV move wrote, replicas included
 
 
 @dataclass
@@ -270,6 +274,14 @@ class SwitchExecutor:
         self._reshard(src, dst, one, {k: out[k][li:li + 1] for k in out},
                       0, 1)
 
+    def _kv_bytes(self, dst, kv_dir, pages: int) -> int:
+        """Bytes the KV move of `pages` planned pages wrote into `dst`'s
+        view, every data group's (0 where the two views are one and no
+        page moved)."""
+        if kv_dir is None or self.Lk == 0:
+            return 0
+        return pages * page_bytes_written(self.cfg, self.cc, self.G, dst)
+
     def monolithic(self, src, dst, live, experts, kv_flat, cur_alloc=None,
                    caches=None, *, out: dict | None = None):
         """Full stop-the-world src->dst switch. Returns (experts', kv_flat',
@@ -292,11 +304,11 @@ class SwitchExecutor:
             # pack/exchange scratch is alive
             if out is None:
                 dst_store = self._empty_store(src, dst, experts)
-                for li in range(self.cfg.num_layers):
+                for li in range(self.cfg.num_moe_layers):
                     self._reshard(src, dst, experts, dst_store, li, li + 1)
             else:
                 dst_store = out
-                for li in range(self.cfg.num_layers):
+                for li in range(self.cfg.num_moe_layers):
                     self._reshard_layer_inplace(src, dst, experts, out, li)
             experts = dst_store
             _sync(self.device)
@@ -320,10 +332,12 @@ class SwitchExecutor:
         tracing.record("switch.weights", t1, t1 + t_w)
         tracing.record("switch.kv", t2, t2 + t_kv)
         tracing.record("switch.commit", t2 + t_kv, t0 + total)
+        kv_pages = int(vm.sum())
         stats = SwitchStats(direction=f"{src}_to_{dst}", total_s=total,
                             pause_s=total, plan_s=t_plan, weights_s=t_w,
-                            kv_s=t_kv, kv_pages=int(vm.sum()), chunks=1,
-                            live_requests=len(live), plan_width=pmax)
+                            kv_s=t_kv, kv_pages=kv_pages, chunks=1,
+                            live_requests=len(live), plan_width=pmax,
+                            kv_bytes=self._kv_bytes(dst, kv_dir, kv_pages))
         return experts, kv_flat, new_alloc, new_caches, stats
 
     # ------------------------------------------------------------------
@@ -539,7 +553,9 @@ class SwitchExecutor:
             plan_s=s.plan_pause_s, weights_s=s.weights_s, kv_s=s.kv_s,
             kv_pages=s.kv_pages, delta_pages=delta_pages,
             chunks=len(s.chunks), live_requests=s.live_requests,
-            plan_width=s.pmax)
+            plan_width=s.pmax,
+            kv_bytes=self._kv_bytes(s.dst, s.kv_dir,
+                                    s.kv_pages + delta_pages))
         out = (s.experts_dst, s.kv_dst if s.kv_dst is not None else kv_flat,
                s.new_alloc, new_caches, stats)
         self.session = None
@@ -655,7 +671,7 @@ class CrossWorldSwitcher:
 
         Planned pages are grouped per (source pool, destination pool) and
         pulled out of the LIVE device buffer by one `gather_pages_rows`
-        launch per group, which reads the source pool's (Lc * 2, pages, M)
+        launch per group, which reads the source pool's (Lc * P, pages, M)
         row view — every representative rank of a pooled source in the
         same launch — so only the moved pages cross to the host. The block
         then lands in the staged host buffer through the full-head form
@@ -671,7 +687,7 @@ class CrossWorldSwitcher:
         gd = group_info(self.cfg, s.G_dst)
         sv = self.cc.view_shape(self.cfg, s.G_src, src_s)
         dv = self.cc.view_shape(self.cfg, s.G_dst, dst_s)
-        L, _, pages, page, Ks, dh = sv
+        L, P, pages, page, Ks, dh = sv
         M, Lc = page * Ks * dh, hi - lo
         dst_views = [s.kv_host[d, g].view(dv) for g in range(s.G_dst)]
         groups: dict = {}
@@ -687,15 +703,15 @@ class CrossWorldSwitcher:
             n = len(sps)
             idx = self._index(sps)
             if src_s.kv_per_rank:
-                pool = kv_flat[d, spool].view(L * 2, pages, M)[2 * lo:2 * hi]
+                pool = kv_flat[d, spool].view(L * P, pages, M)[P * lo:P * hi]
                 out = tracing.host_read(gather_pages_rows(pool, idx).cpu)[:, :n]
-                data = out.reshape(Lc, 2, n, page, Ks, dh)
+                data = out.reshape(Lc, P, n, page, Ks, dh)
             else:
-                rows = kv_flat[d].view(s.G_src, L * 2, pages, M)
-                pool = rows[::gs.kv_rep, 2 * lo:2 * hi]
+                rows = kv_flat[d].view(s.G_src, L * P, pages, M)
+                pool = rows[::gs.kv_rep, P * lo:P * hi]
                 out = tracing.host_read(gather_pages_rows(pool, idx).cpu)[:, :, :n]
-                data = out.reshape(-1, Lc, 2, n, page, Ks, dh).movedim(
-                    0, 4).reshape(Lc, 2, n, page, -1, dh)
+                data = out.reshape(-1, Lc, P, n, page, Ks, dh).movedim(
+                    0, 4).reshape(Lc, P, n, page, -1, dh)
             dparr = torch.tensor(dps, dtype=torch.long)
             if dst_s.kv_per_rank:
                 dst_views[dpool][lo:hi, :, dparr] = data
@@ -827,6 +843,9 @@ class CrossWorldSwitcher:
             pause_s=s.plan_pause_s + (now - t_pause0),
             plan_s=s.plan_pause_s, weights_s=s.weights_s, kv_s=s.kv_s,
             kv_pages=s.kv_pages, delta_pages=delta_pages,
-            chunks=len(s.chunks), live_requests=s.live_requests)
+            chunks=len(s.chunks), live_requests=s.live_requests,
+            kv_bytes=(s.kv_pages + delta_pages) * page_bytes_written(
+                self.cfg, self.cc, s.G_dst, s.dst)
+            if s.kv_host is not None else 0)
         self.session = None
         return s.new_alloc, new_caches, stats

@@ -709,8 +709,7 @@ __device__ __forceinline__ float block_reduce(float v, float* buf, bool mx) {
   return v;
 }
 
-__global__ void __launch_bounds__(kSThreads)
-paged_attn_combine_kernel(const SplitParams p, int dh) {
+__device__ __forceinline__ void combine_rows(const SplitParams& p, int dh) {
   extern __shared__ float comb_smem[];   // [n_split] weights, [4] reduce
   float* wts = comb_smem;
   float* buf = comb_smem + p.n_split;
@@ -744,6 +743,11 @@ paged_attn_combine_kernel(const SplitParams p, int dh) {
       a += p.part_acc[(base + s * step) * dh + d] * wts[s];
     o_row[d] = __float2bfloat16(a / fmaxf(l, 1e-30f));
   }
+}
+
+__global__ void __launch_bounds__(kSThreads)
+paged_attn_combine_kernel(const SplitParams p, int dh) {
+  combine_rows(p, dh);
 }
 
 template <int DH, int KS>
@@ -795,6 +799,301 @@ int launch_bf16(int dh, const SplitParams& p, int G, cudaStream_t s) {
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: latent attention (MLA), absorbed
+// ---------------------------------------------------------------------------
+//
+// One latent pool (G, pages, page, DK) holds [c_kv | k_pe] per position; a
+// query row is one head of one query token, [q_nope W_UK | q_pe] of DK
+// values. out = softmax(q . k / sqrt(nope + rope)) . k[:, :DV]: V is the
+// first DV columns of the K tile already in shared memory, so each latent
+// tile crosses HBM once for all the heads of a batch row (a decode row's
+// 8 or 16 heads fit one 16-row tile). Block = (split, row tile, rank x
+// batch row), 8 warps. A 64-position tile is staged by cp.async into a
+// two-stage ring (DK = 576: 72 KB a stage, the 16-row Q tile 18 KB beside
+// it). S = Q K^T is split over positions: warp w computes the 16 x 8
+// scores of positions [8w, 8w + 8) through all DK/16 k-steps (Q's A
+// fragments from shared memory by ldmatrix, K's by ldmatrix); the tile's
+// row maxima and sums are merged across the warps in shared memory, and
+// P is written there in bf16. O += P V is split over output columns: warp
+// w owns columns [64w, 64w + 64) of the DV = 512 (acc[8][4] a thread: a
+// warp could not hold all 512), reading P by ldmatrix and V from the K
+// tile by ldmatrix.trans. Every warp keeps the same running max and sum,
+// so no cross-warp merge is needed at the end. The splits' partials go
+// to paged_mla_combine_kernel, the GQA kernel's combine over DV columns.
+// With `work` (the tracer's (2,) double counter; null when tracing is
+// off) thread 0 of each block adds the bytes and FLOPs of its share:
+// the live latent positions once (by the row's last row tile), Q in and
+// O out of its rows (by split 0), and 2 (DK + DV) FLOPs per visible
+// (row, position) pair.
+
+constexpr int kMThreads = 256;      // 8 warps
+constexpr int kMRows = 16;          // query rows per block tile (kernel.py)
+constexpr int kMTile = 64;          // positions per stage
+constexpr int kMStages = 2;
+
+template <int DK>
+__device__ __forceinline__ uint32_t lat_off(int r, int c) {
+  static_assert(DK % 64 == 0, "lat_off: rows of whole 128-byte lines");
+  return (uint32_t)(r * DK * 2 + ((c ^ (r & 7)) << 4));
+}
+__device__ __forceinline__ uint32_t p_off(int r, int c) {
+  return (uint32_t)(r * kMTile * 2 + ((c ^ (r & 7)) << 4));
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(kMThreads)
+paged_mla_kernel(const SplitParams p, double* work) {
+  constexpr int CPR = DK / 8;                  // 16-byte chunks a row
+  constexpr int TILE_B = kMTile * DK * 2;
+  constexpr int NW = kMThreads / 32;
+  constexpr int CW = DV / NW;                  // output columns a warp
+  static_assert(kMTile == 8 * NW && CW % 16 == 0, "warp split");
+  extern __shared__ __align__(128) uint8_t mla_smem[];
+  uint8_t* q_s = mla_smem + kMStages * TILE_B;
+  uint8_t* p_s = q_s + kMRows * DK * 2;
+  float* red_m = reinterpret_cast<float*>(p_s + kMRows * kMTile * 2);
+  float* red_l = red_m + NW * kMRows;
+  int* sbt = reinterpret_cast<int*>(red_l + NW * kMRows);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int split = blockIdx.x, rt = blockIdx.y;
+  const int gb = blockIdx.z, g = gb / p.B;
+  const int H = p.H;
+  const int row0 = rt * kMRows;
+  const int kv_len = p.lens[gb], qo = p.qoff[gb];
+  const int tile_id = gb * p.row_tiles + rt;
+
+  const int last_row = min(p.rows, row0 + kMRows) - 1;
+  const int hi_pos = min(kv_len, qo + last_row / H + 1);
+  const int p_end = min(p.maxp, (hi_pos + p.page - 1) / p.page);
+  const int s_lo = split * p.split_pages;
+  const int pg_lo = s_lo, pg_hi = min(min(p.maxp, s_lo + p.split_pages), p_end);
+  const int pos_lo = pg_lo * p.page;
+  const int pos_hi = min(pg_hi * p.page, hi_pos);
+
+  float acc[CW / 8][4];
+#pragma unroll
+  for (int i = 0; i < CW / 8; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+  const int r_lo = row0 + gq, r_hi = r_lo + 8;
+  const int qp_lo = qo + r_lo / H, qp_hi = qo + r_hi / H;
+
+  if (pg_lo < pg_hi && pos_lo < pos_hi) {
+    const __nv_bfloat16* base = p.k + (size_t)g * (size_t)p.g_stride;
+    const int* btrow = p.bt + (size_t)gb * p.maxp + pg_lo;
+    for (int i = tid; i < pg_hi - pg_lo; i += kMThreads)
+      sbt[i] = min(max(btrow[i], 0), p.pages - 1);
+    // the tile's Q rows (zero past p.rows)
+    for (int i = tid; i < kMRows * CPR; i += kMThreads) {
+      const int r = i / CPR, c = i % CPR, rr = row0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (rr < p.rows)
+        v = *reinterpret_cast<const uint4*>(
+            p.q + (((size_t)gb * p.Sq + rr / H) * H + rr % H) * DK + c * 8);
+      *reinterpret_cast<uint4*>(q_s + lat_off<DK>(r, c)) = v;
+    }
+    __syncthreads();
+
+    const uint32_t ring = smem_addr(mla_smem);
+    auto load_tile = [&](int t0, int stage) {
+      const uint32_t dst = ring + stage * TILE_B;
+#pragma unroll 2
+      for (int idx = tid; idx < kMTile * CPR; idx += kMThreads) {
+        const int r = idx / CPR, c = idx % CPR, pos = t0 + r;
+        const __nv_bfloat16* src = base;
+        int nbytes = 0;
+        if (pos < pos_hi) {
+          const int pg = pos / p.page;
+          src = base + ((size_t)sbt[pg - pg_lo] * p.page +
+                        (pos - pg * p.page)) * DK + c * 8;
+          nbytes = 16;
+        }
+        cp_async16(dst + lat_off<DK>(r, c), src, nbytes);
+      }
+      cp_async_commit();
+    };
+
+    const uint32_t qsm = smem_addr(q_s), psm = smem_addr(p_s);
+    const int n_tiles = (pos_hi - pos_lo + kMTile - 1) / kMTile;
+    load_tile(pos_lo, 0);
+    if (n_tiles > 1) load_tile(pos_lo + kMTile, 1);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int t0 = pos_lo + t * kMTile;
+      if (t + 1 < n_tiles) cp_async_wait<1>(); else cp_async_wait<0>();
+      __syncthreads();
+      const uint32_t kt = ring + (t % kMStages) * TILE_B;
+
+      // S: this warp's 8 positions against the 16 rows, every k-step
+      float sc[4] = {0.f, 0.f, 0.f, 0.f};
+      const int kr = warp * 8 + lane % 8;
+#pragma unroll 4
+      for (int kk = 0; kk < DK / 16; kk += 2) {
+        uint32_t a0[4], a1[4], b[4];
+        ldsm_x4(qsm + lat_off<DK>(lane % 16, 2 * kk + lane / 16), a0);
+        ldsm_x4(qsm + lat_off<DK>(lane % 16, 2 * kk + 2 + lane / 16), a1);
+        ldsm_x4(kt + lat_off<DK>(kr, 2 * kk + lane / 8), b);
+        mma16816(sc, a0, b[0], b[1]);
+        mma16816(sc, a1, b[2], b[3]);
+      }
+      float mx_lo = kNegInf, mx_hi = kNegInf;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kpos = t0 + warp * 8 + 2 * tq + (i & 1);
+        const int qpos = i < 2 ? qp_lo : qp_hi;
+        const bool ok = kpos < pos_hi && kpos <= qpos;
+        sc[i] = ok ? sc[i] * p.scale_log2 : kNegInf;
+      }
+      mx_lo = fmaxf(sc[0], sc[1]);
+      mx_hi = fmaxf(sc[2], sc[3]);
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o));
+      }
+      if (tq == 0) {
+        red_m[warp * kMRows + gq] = mx_lo;
+        red_m[warp * kMRows + gq + 8] = mx_hi;
+      }
+      __syncthreads();
+      float tm_lo = kNegInf, tm_hi = kNegInf;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        tm_lo = fmaxf(tm_lo, red_m[w * kMRows + gq]);
+        tm_hi = fmaxf(tm_hi, red_m[w * kMRows + gq + 8]);
+      }
+      const float mn_lo = fmaxf(m_lo, tm_lo), mn_hi = fmaxf(m_hi, tm_hi);
+      const float c_lo = exp2f(m_lo - mn_lo), c_hi = exp2f(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      sc[0] = exp2f(sc[0] - mn_lo);
+      sc[1] = exp2f(sc[1] - mn_lo);
+      sc[2] = exp2f(sc[2] - mn_hi);
+      sc[3] = exp2f(sc[3] - mn_hi);
+      float su_lo = sc[0] + sc[1], su_hi = sc[2] + sc[3];
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        su_lo += __shfl_xor_sync(0xffffffffu, su_lo, o);
+        su_hi += __shfl_xor_sync(0xffffffffu, su_hi, o);
+      }
+      // P in bf16: row gq and gq + 8, this warp's chunk of 8 positions
+      *reinterpret_cast<uint32_t*>(p_s + p_off(gq, warp) + 4 * tq) =
+          pack_bf16(sc[0], sc[1]);
+      *reinterpret_cast<uint32_t*>(p_s + p_off(gq + 8, warp) + 4 * tq) =
+          pack_bf16(sc[2], sc[3]);
+      if (tq == 0) {
+        red_l[warp * kMRows + gq] = su_lo;
+        red_l[warp * kMRows + gq + 8] = su_hi;
+      }
+      __syncthreads();
+      float ts_lo = 0.f, ts_hi = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        ts_lo += red_l[w * kMRows + gq];
+        ts_hi += red_l[w * kMRows + gq + 8];
+      }
+      l_lo = l_lo * c_lo + ts_lo;
+      l_hi = l_hi * c_hi + ts_hi;
+#pragma unroll
+      for (int i = 0; i < CW / 8; ++i) {
+        acc[i][0] *= c_lo;
+        acc[i][1] *= c_lo;
+        acc[i][2] *= c_hi;
+        acc[i][3] *= c_hi;
+      }
+      // O += P V over this warp's CW columns, V = the tile's first DV
+#pragma unroll
+      for (int j = 0; j < kMTile / 16; ++j) {
+        uint32_t a[4];
+        ldsm_x4(psm + p_off(lane % 16, 2 * j + lane / 16), a);
+        const int r = 16 * j + ((lane / 8) & 1) * 8 + lane % 8;
+#pragma unroll
+        for (int dp = 0; dp < CW / 16; ++dp) {
+          uint32_t b[4];
+          ldsm_x4_t(kt + lat_off<DK>(r, warp * (CW / 8) + 2 * dp + lane / 16),
+                    b);
+          mma16816(acc[2 * dp], a, b[0], b[1]);
+          mma16816(acc[2 * dp + 1], a, b[2], b[3]);
+        }
+      }
+      __syncthreads();          // stage t % 2, P and the reductions reused
+      if (t + 2 < n_tiles) load_tile(t0 + 2 * kMTile, t % kMStages);
+    }
+  }
+
+  const size_t part = ((size_t)tile_id * p.n_split + split) * kMRows;
+#pragma unroll
+  for (int i = 0; i < CW / 8; ++i) {
+    const int d = warp * CW + i * 8 + 2 * tq;
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int r = gq + 8 * h2, rr = row0 + r;
+      if (rr >= p.rows) continue;
+      const float a0 = acc[i][2 * h2], a1 = acc[i][2 * h2 + 1];
+      if (p.n_split > 1) {
+        *reinterpret_cast<float2*>(p.part_acc + (part + r) * DV + d) =
+            make_float2(a0, a1);
+      } else {
+        const float l = fmaxf(h2 ? l_hi : l_lo, 1e-30f);
+        *reinterpret_cast<uint32_t*>(
+            p.out + (((size_t)gb * p.Sq + rr / H) * H + rr % H) * DV + d) =
+            pack_bf16(a0 / l, a1 / l);
+      }
+    }
+  }
+  if (p.n_split > 1 && warp == 0 && tq == 0) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int r = gq + 8 * h2;
+      if (row0 + r >= p.rows) continue;
+      p.part_ml[(part + r) * 2] = h2 ? m_hi : m_lo;
+      p.part_ml[(part + r) * 2 + 1] = h2 ? l_hi : l_lo;
+    }
+  }
+  if (work != nullptr && tid == 0) {
+    double nbytes = 0.0, flops = 0.0;
+    const int nrows = min(p.rows, row0 + kMRows) - row0;
+    if (rt == p.row_tiles - 1 && pos_hi > pos_lo)
+      nbytes += (double)(pos_hi - pos_lo) * DK * 2;
+    if (split == 0) nbytes += (double)nrows * (DK + DV) * 2;
+    if (pos_hi > pos_lo) {
+      long long pairs = 0;
+      for (int r = 0; r < nrows; ++r) {
+        const int vis = min(pos_hi, qo + (row0 + r) / H + 1) - pos_lo;
+        if (vis > 0) pairs += vis;
+      }
+      flops = 2.0 * (DK + DV) * (double)pairs;
+    }
+    atomicAdd(&work[0], nbytes);
+    atomicAdd(&work[1], flops);
+  }
+}
+
+__global__ void __launch_bounds__(kSThreads)
+paged_mla_combine_kernel(const SplitParams p, int dh) {
+  combine_rows(p, dh);
+}
+
+template <int DK, int DV>
+int launch_mla(const SplitParams& p, int G, double* work, cudaStream_t s) {
+  constexpr int smem = kMStages * kMTile * DK * 2 + kMRows * DK * 2 +
+                       kMRows * kMTile * 2 + 2 * (kMThreads / 32) * kMRows * 4 +
+                       kMaxSplitPages * 4;
+  auto kern = paged_mla_kernel<DK, DV>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(p.n_split, p.row_tiles, G * p.B);
+  kern<<<grid, kMThreads, smem, s>>>(p, work);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || p.n_split == 1) return (int)e;
+  paged_mla_combine_kernel<<<G * p.B * p.row_tiles * p.tile_rows, kSThreads,
+                             (p.n_split + kSThreads / 32) * 4, s>>>(p, DV);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
 // dtype: 0 = float32 (serial fp32 kernel), 1 = bfloat16 (split-KV tensor
@@ -845,4 +1144,57 @@ extern "C" int paged_attention_launch(
   p.n_split = n_split;
   p.split_pages = split_pages;
   return launch_bf16(dh, p, G, s);
+}
+
+// Latent attention (MLA), bf16 only: q (G,B,Sq,H,dk) [q_nope W_UK | q_pe];
+// one latent pool (G,pages,page,dk) at rank stride g_stride elements; out
+// (G,B,Sq,H,dv) = softmax(q . k * scale) . k[:, :dv], masked on kv_len and
+// causal on q_offset. dk 576 and dv 512 (DeepSeek-V3's latent) are
+// instantiated. n_split, split_pages and the fp32 scratch part_acc
+// (tiles, n_split, 16, dv) / part_ml (tiles, n_split, 16, 2) describe the
+// split (kernel.py:mla_split); work: the tracer's (2,) double counter or
+// null. Returns the cudaError_t of the launch (0 = success).
+extern "C" int paged_mla_launch(
+    const void* q, const void* pool, const void* block_table,
+    const void* kv_lens, const void* q_offset, void* out, int G, int B,
+    int Sq, int H, int dk, int dv, int pages, int page, int maxp,
+    long long g_stride, float scale, int n_split, int split_pages,
+    void* part_acc, void* part_ml, void* work, void* stream) {
+  if (H <= 0 || page <= 0 || page > kMaxPage || pages <= 0 || n_split < 1 ||
+      n_split > 8192 || split_pages < 1 || split_pages > kMaxSplitPages ||
+      (long long)n_split * split_pages < maxp || g_stride % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(pool) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+      (n_split > 1 && (part_acc == nullptr || part_ml == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  SplitParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(pool);
+  p.v = p.k;
+  p.bt = static_cast<const int*>(block_table);
+  p.lens = static_cast<const int*>(kv_lens);
+  p.qoff = static_cast<const int*>(q_offset);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.part_acc = static_cast<float*>(part_acc);
+  p.part_ml = static_cast<float*>(part_ml);
+  p.B = B;
+  p.Sq = Sq;
+  p.H = H;
+  p.K = 1;
+  p.pages = pages;
+  p.page = page;
+  p.maxp = maxp;
+  p.g_stride = g_stride;
+  p.window = 0;
+  p.scale_log2 = (float)(1.4426950408889634 * (double)scale);
+  p.rows = H * Sq;
+  p.tile_rows = kMRows;
+  p.row_tiles = (p.rows + kMRows - 1) / kMRows;
+  p.n_split = n_split;
+  p.split_pages = split_pages;
+  if (p.row_tiles > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  double* w = static_cast<double*>(work);
+  if (dk == 576 && dv == 512) return launch_mla<576, 512>(p, G, w, s);
+  return (int)cudaErrorInvalidValue;
 }

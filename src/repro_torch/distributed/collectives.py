@@ -68,10 +68,10 @@ def switch_bytes(cfg: ModelConfig, G: int, live_tokens: int,
     Experts: each rank keeps 1/G of what it holds; (G-1)/G of the expert
     bytes cross the interconnect. KV: every live token's bytes move once
     (minus the 1/G that stays local)."""
-    expert_bytes = (cfg.num_layers * cfg.num_experts
+    expert_bytes = (cfg.num_moe_layers * cfg.num_experts
                     * 3 * cfg.d_model * cfg.d_expert * bytes_per_el)
-    kv_bytes = (live_tokens * _kv_layers(cfg) * 2
-                * cfg.num_kv_heads * cfg.dh * bytes_per_el)
+    kv_bytes = (live_tokens * _kv_layers(cfg) * cfg.kv_planes
+                * cfg.num_kv_heads * cfg.kv_dim * bytes_per_el)
     frac = (G - 1) / G
     return {"expert_bytes_moved": int(expert_bytes * frac),
             "kv_bytes_moved": int(kv_bytes * frac),

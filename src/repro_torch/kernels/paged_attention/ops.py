@@ -9,9 +9,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.kernel import (paged_attention_cuda,
+                                                        paged_mla_cuda)
+from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                     paged_mla_ref)
 
 
 def _sum_min(a: int, b: int, cap: int) -> int:
@@ -75,4 +78,62 @@ def paged_attention(q, k_pool, v_pool, block_table, kv_lens, *, q_offset,
                                 kv_lens[g], q_offset=q_offset[g],
                                 window=window)
             for g in range(q.shape[0])])
+    return out if stacked else out[0]
+
+
+def mla_worst_case_work(G: int, B: int, Sq: int, H: int, dk: int, dv: int,
+                        maxp: int, page: int,
+                        elem: int) -> tuple[int, int]:
+    """(flops, bytes) of one MLA call with every row's kv_len at maxp *
+    page and its queries at the end: the latent positions read once per
+    batch row (dk wide), q read dk wide and out written dv wide once, the
+    int32 block table and lengths, 2 (dk + dv) operations per visible
+    (head, position) pair of each query."""
+    kv = maxp * page
+    qo = max(kv - Sq, 0)
+    seen = _sum_min(qo + 1, qo + Sq, kv)
+    span = min(kv, qo + Sq)
+    nbytes = (G * B * Sq * H * (dk + dv) * elem + G * B * span * dk * elem
+              + 4 * (G * B * maxp + 2 * G * B))
+    return 2 * (dk + dv) * H * seen * G * B, nbytes
+
+
+def paged_mla(q, pool, block_table, kv_lens, *, q_offset, v_dim: int,
+              scale: float) -> torch.Tensor:
+    """Latent attention, kernel #1's MLA path: q ([G,]B,Sq,H,dk) the
+    absorbed query; pool ([G,]pages,page,dk) one latent pool, read as K
+    and, through its first v_dim columns, as V; block_table ([G,]B,maxp);
+    kv_lens, q_offset ([G,]B) -> ([G,]B,Sq,H,v_dim). CPU tensors run
+    `paged_mla_ref`, CUDA tensors `paged_mla_kernel` (bf16), `meta` the
+    worst case's tally. Traced, the call's work goes to the counters
+    `mla.bytes` / `mla.flops`: the kernel adds it on the device, the plain
+    version counts the same (`tracing.count_mla`)."""
+    stacked = q.dim() == 5
+    if not stacked:
+        q, pool = q[None], pool[None]
+        block_table, kv_lens, q_offset = (block_table[None], kv_lens[None],
+                                          q_offset[None])
+    G, B, Sq, H, dk = q.shape
+    kind = dispatch.device_kind(q, pool, block_table, kv_lens, q_offset)
+    if kind == "meta":
+        flops, nb = mla_worst_case_work(G, B, Sq, H, dk, v_dim,
+                                        block_table.shape[2], pool.shape[2],
+                                        q.element_size())
+        out = dispatch.stand_in("paged_attention", (G, B, Sq, H, v_dim),
+                                q.dtype, flops=flops, nbytes=nb)
+    elif kind == "cuda":
+        i32 = torch.int32
+        out = paged_mla_cuda(
+            q.contiguous(), pool, block_table.to(i32).contiguous(),
+            kv_lens.to(i32).contiguous(), q_offset.to(i32).contiguous(),
+            v_dim=v_dim, scale=scale,
+            work=tracing.mla_work(q.device) if tracing.active() else None)
+    else:
+        if tracing.active():
+            tracing.count_mla(kv_lens, q_offset, Sq, H, dk, v_dim,
+                              q.element_size())
+        out = torch.stack([
+            paged_mla_ref(q[g], pool[g], block_table[g], kv_lens[g],
+                          q_offset=q_offset[g], v_dim=v_dim, scale=scale)
+            for g in range(G)])
     return out if stacked else out[0]

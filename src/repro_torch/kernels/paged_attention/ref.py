@@ -20,15 +20,16 @@ NEG_INF = -1e30
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_table, kv_lens, *,
-                        q_offset, window: int = 0,
-                        page_chunk: int = 8) -> torch.Tensor:
-    """Returns (B, Sq, H, dh) in q.dtype. q_offset (B,) global position of
-    q[:, 0]."""
+                        q_offset, window: int = 0, page_chunk: int = 8,
+                        scale: float | None = None) -> torch.Tensor:
+    """Returns (B, Sq, H, dv) in q.dtype, dv the V pool's width. q_offset
+    (B,) global position of q[:, 0]. scale: 1/sqrt(dh) by default."""
     B, Sq, H, dh = q.shape
     pages, page, K, _ = k_pool.shape
+    dv = v_pool.shape[-1]
     maxp = block_table.shape[1]
     rep = H // K
-    scale = 1.0 / math.sqrt(dh)
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
     dev = q.device
     q32 = q.float() * scale
     q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
@@ -40,7 +41,7 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, kv_lens, *,
 
     m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, H, Sq, dh), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, Sq, dv), dtype=torch.float32, device=dev)
     for j in range(nchunk):
         idx = bt[:, j * page_chunk:(j + 1) * page_chunk]
         kc = k_pool[idx]                       # (B, pc, page, K, dh)
@@ -49,7 +50,7 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, kv_lens, *,
                   [:, None] * page + torch.arange(page, device=dev)[None, :])
         kv_pos = kv_pos.reshape(-1)
         kc = kc.reshape(B, -1, K, dh).float().repeat_interleave(rep, dim=2)
-        vc = vc.reshape(B, -1, K, dh).float().repeat_interleave(rep, dim=2)
+        vc = vc.reshape(B, -1, K, dv).float().repeat_interleave(rep, dim=2)
         s = torch.einsum("bqhd,bkhd->bhqk", q32, kc)
         ok = kv_pos[None, None, :] < kv_lens[:, None, None]   # (B,1,kpos)
         ok = ok & (kv_pos[None, None, :] <= q_pos[:, :, None])
@@ -64,6 +65,17 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, kv_lens, *,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
+
+
+def paged_mla_ref(q, pool, block_table, kv_lens, *, q_offset, v_dim: int,
+                  scale: float) -> torch.Tensor:
+    """Latent attention over one latent pool: q (B, Sq, H, dk) [absorbed
+    nope | rope]; pool (pages, page, dk) -> (B, Sq, H, v_dim) =
+    softmax(q . k * scale) . k[..., :v_dim], with the masks above (no
+    window)."""
+    lat = pool[:, :, None, :]                       # one KV head
+    return paged_attention_ref(q, lat, lat[..., :v_dim], block_table,
+                               kv_lens, q_offset=q_offset, scale=scale)
 
 
 def paged_attention_split_ref(q, k_pool, v_pool, block_table, kv_lens,

@@ -140,7 +140,7 @@ def cc_for(cfg: ModelConfig, G: int, layout: str, group_batch: int,
 def _expert_bytes_total(cfg: ModelConfig) -> int:
     if not cfg.is_moe:
         return 0
-    return (cfg.num_layers * cfg.num_experts * 3 * cfg.d_model
+    return (cfg.num_moe_layers * cfg.num_experts * 3 * cfg.d_model
             * cfg.d_expert * 2)
 
 
@@ -172,7 +172,8 @@ def analytic_terms(cfg: ModelConfig, shape: ShapeSpec, layout: str,
     nonexpert_b = N * 2 - expert_b
     B, S = shape.global_batch, shape.seq_len
     Lk = num_kv_layers(cfg)
-    kv_tok_bytes = 2 * cfg.num_kv_heads * cfg.dh * 2 * Lk   # K+V, bf16
+    # K+V (or MLA's one latent plane), bf16
+    kv_tok_bytes = cfg.kv_planes * cfg.num_kv_heads * cfg.kv_dim * 2 * Lk
     window = cfg.sliding_window or 0
     ctx = min(S, window) if window else S
 
@@ -220,13 +221,15 @@ def analytic_terms(cfg: ModelConfig, shape: ShapeSpec, layout: str,
             act = _expected_activated(E_loc, cfg.top_k, routed)
             w_dev = nonexpert_b / G + (act / max(E_loc, 1)) \
                 * (expert_b / chips)
-            kv_dev = group_B * ctx * gi.kv_local * cfg.dh * 2 * 2 * Lk
+            kv_dev = (group_B * ctx * gi.kv_local * cfg.kv_dim
+                      * cfg.kv_planes * 2 * Lk)
         elif layout == TP:
             act = _expected_activated(cfg.num_experts, cfg.top_k, group_B) \
                 if cfg.is_moe else 0
             w_dev = nonexpert_b / G + (act / max(cfg.num_experts, 1)) \
                 * expert_b / G
-            kv_dev = group_B * ctx * gi.kv_local * cfg.dh * 2 * 2 * Lk
+            kv_dev = (group_B * ctx * gi.kv_local * cfg.kv_dim
+                      * cfg.kv_planes * 2 * Lk)
         else:
             lay = make_expert_layout(cfg.num_experts or 1, G, EP)
             E_loc = (cfg.num_experts or 1) // lay.ep
@@ -242,8 +245,8 @@ def analytic_terms(cfg: ModelConfig, shape: ShapeSpec, layout: str,
                                            * cfg.num_kv_heads * cfg.dh) * 2
                 mlp_b = N * 2 - attn_b
                 w_dev = attn_b + mlp_b / G
-            kv_dev = (group_B / G) * ctx * cfg.num_kv_heads * cfg.dh \
-                * 2 * 2 * Lk
+            kv_dev = (group_B / G) * ctx * cfg.num_kv_heads * cfg.kv_dim \
+                * cfg.kv_planes * 2 * Lk
         if cfg.ssm_state:
             ssm_b = (group_B / (G if layout == EP else 1)) * cfg.num_layers \
                 * cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4

@@ -17,6 +17,12 @@ from dataclasses import dataclass
 import torch
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+#: ModelConfig fields repro's config lacks (latent attention, the sigmoid
+#: router, ungated shared experts, leading dense layers, the norm eps);
+#: their defaults leave every configuration repro has as it is
+PORT_ONLY_FIELDS = ("kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+                    "v_head_dim", "router", "routed_scaling", "shared_gate",
+                    "first_dense_layers", "norm_eps")
 
 
 @dataclass(frozen=True)
@@ -56,6 +62,23 @@ class ModelConfig:
     encoder_seq: int = 0             # stubbed frame/patch positions for encoder
     max_positions: int = 4096        # learned-position table size (encdec)
     num_patches: int = 0             # stubbed image patch positions (vlm)
+    # --- latent attention (MLA, DeepSeek-V3's block without q-LoRA):
+    # kv_lora_rank > 0 turns it on. The cache holds one latent "KV head"
+    # of kv_lora_rank + qk_rope_head_dim values a position, read as K
+    # and, through its first kv_lora_rank columns, as V (num_kv_heads 1);
+    # head_dim is the query/key width qk_nope + qk_rope ---
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # --- router: "softmax" (renormalised top-k) or "sigmoid" (top-k of
+    # sigmoid + a correction bias, the weights the chosen sigmoids
+    # renormalised, times routed_scaling) ---
+    router: str = "softmax"
+    routed_scaling: float = 1.0
+    shared_gate: bool = True         # shared experts behind a sigmoid gate
+    first_dense_layers: int = 0      # leading layers with a dense MLP of d_ff
+    norm_eps: float = 1e-6
     # --- numerics ---
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
@@ -86,6 +109,43 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def kv_dim(self) -> int:
+        """Elements of one KV head of one position in one cache plane:
+        the latent and its rope key under MLA, else the head dim."""
+        return self.kv_lora_rank + self.qk_rope_head_dim if self.is_mla \
+            else self.dh
+
+    @property
+    def kv_planes(self) -> int:
+        """Planes of the paged cache: K and V, or MLA's one latent."""
+        return 1 if self.is_mla else 2
+
+    @property
+    def rope_dim(self) -> int:
+        return self.qk_rope_head_dim if self.is_mla else self.dh
+
+    @property
+    def attn_out_dim(self) -> int:
+        """Width of one head's attention output (what wo takes per head)."""
+        return self.v_head_dim if self.is_mla else self.dh
+
+    @property
+    def num_dense_layers(self) -> int:
+        """Layers with a dense MLP: all of a dense model's, the leading
+        `first_dense_layers` of an MoE model's."""
+        return self.first_dense_layers if self.is_moe else self.num_layers
+
+    @property
+    def num_moe_layers(self) -> int:
+        """Layers with routed experts: the expert store's layer count."""
+        return self.num_layers - self.first_dense_layers if self.is_moe \
+            else 0
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -119,6 +179,15 @@ class ModelConfig:
         )
         if self.num_kv_heads == 1:
             small["num_kv_heads"] = 1
+        if self.is_mla:
+            # latent 32, rope 8, nope 16, v 16, 4 heads, 8 experts top-2,
+            # one dense layer then 2 MoE layers
+            small.update(num_layers=min(self.num_layers, 3), head_dim=24,
+                         kv_lora_rank=32, qk_nope_head_dim=16,
+                         qk_rope_head_dim=8, v_head_dim=16,
+                         num_experts=min(self.num_experts, 8),
+                         capacity_factor=min(self.num_experts, 8) / 2,
+                         first_dense_layers=min(self.first_dense_layers, 1))
         small.update(kw)
         return self.replace(**small)
 
@@ -148,7 +217,7 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def apply_norm(cfg: ModelConfig, x: torch.Tensor, w: dict) -> torch.Tensor:
     if cfg.norm_type == "layernorm":
         return layernorm(x, w["scale"], w["bias"])
-    return rmsnorm(x, w["scale"])
+    return rmsnorm(x, w["scale"], cfg.norm_eps)
 
 
 def init_norm(cfg: ModelConfig, shape_prefix: tuple = (), *,
@@ -269,11 +338,17 @@ def index_tree(tree, i: int):
 def dense_init(gen: torch.Generator, shape, in_dim: int, dtype: torch.dtype,
                device) -> torch.Tensor:
     """N(0, 1/in_dim) weights, drawn in fp32 and cast (repro's scale); on
-    `meta`, the empty tensor.
+    `meta`, the empty tensor."""
+    return normal_init(gen, shape, 1.0 / math.sqrt(in_dim), dtype, device)
+
+
+def normal_init(gen: torch.Generator, shape, std: float, dtype: torch.dtype,
+                device) -> torch.Tensor:
+    """N(0, std^2) values, drawn in fp32 and cast; on `meta`, the empty
+    tensor.
 
     Stacked tensors are drawn one leading slice at a time, so the fp32
     scratch never exceeds one slice of a full-width expert tensor."""
-    std = 1.0 / math.sqrt(in_dim)
     shape = tuple(shape)
     out = torch.empty(shape, dtype=dtype, device=device)
     if out.device.type == "meta":          # the dry run: no values to draw

@@ -37,7 +37,8 @@ import torch.nn.functional as F
 from repro_torch import tracing
 from repro_torch.distributed import ranks
 from repro_torch.kernels.moe_gemm.ops import grouped_matmul, grouped_swiglu
-from repro_torch.models.common import ModelConfig, dense_init, matmul
+from repro_torch.models.common import (ModelConfig, dense_init, matmul,
+                                      normal_init)
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +125,8 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, layers: int | None,
     """Global-layout expert params, repro's tree and fan-in scales
     (packing to rank-major happens in core/layouts). With shared experts
     of aggregate width F = num_shared_experts * d_expert: shared_wg and
-    shared_wu (L, F, D), shared_w2 (L, D, F), shared_gate (L, D)."""
+    shared_wu (L, F, D), shared_w2 (L, D, F), shared_gate (L, D) where
+    they are gated. A sigmoid router adds router_bias (L, E) in fp32."""
     L = () if layers is None else (layers,)
     D, E, I = cfg.d_model, cfg.num_experts, cfg.d_expert
     pd = cfg.param_dtype
@@ -133,13 +135,23 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, layers: int | None,
         "w13": dense_init(gen, L + (E, 2 * I, D), D, pd, device),
         "w2": dense_init(gen, L + (E, D, I), I, pd, device),
     }
+    if cfg.router == "sigmoid":
+        # the correction bias (a balance term learnt in training), drawn
+        # N(0, ROUTER_BIAS_STD^2) so that it moves choices
+        p["router_bias"] = normal_init(gen, L + (E,), ROUTER_BIAS_STD,
+                                       torch.float32, device)
     if cfg.num_shared_experts:
         Fs = cfg.num_shared_experts * I
         p["shared_wg"] = dense_init(gen, L + (Fs, D), D, pd, device)
         p["shared_wu"] = dense_init(gen, L + (Fs, D), D, pd, device)
         p["shared_w2"] = dense_init(gen, L + (D, Fs), Fs, pd, device)
-        p["shared_gate"] = dense_init(gen, L + (D,), D, pd, device)
+        if cfg.shared_gate:
+            p["shared_gate"] = dense_init(gen, L + (D,), D, pd, device)
     return p
+
+
+#: the spread of a drawn sigmoid-router correction bias
+ROUTER_BIAS_STD = 0.05
 
 
 def capacity(T: int, cfg: ModelConfig, factor: float | None = None) -> int:
@@ -152,12 +164,26 @@ def capacity(T: int, cfg: ModelConfig, factor: float | None = None) -> int:
 # Routing
 # ---------------------------------------------------------------------------
 
-def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor):
+def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor,
+          bias: torch.Tensor | None = None):
     """x (..., D) -> gates (..., k) fp32, expert_ids (..., k) int64,
-    probs (..., E). Ties pick the lowest expert index first, as
-    `lax.top_k` does (a stable descending sort; `torch.topk` promises no
-    order on ties)."""
+    probs (..., E). Ties pick the
+    lowest expert index first, as `lax.top_k` does (a stable descending
+    sort; `torch.topk` promises no order on ties).
+
+    softmax: the top-k of softmax(x R), renormalised. sigmoid
+    (DeepSeek-V3's, one group): s = sigmoid(x R), the top-k of s + b
+    chosen, the weights s[chosen] / sum s[chosen] * routed_scaling; the
+    bias chooses but does not weigh."""
     logits = x.float() @ router_w.float()
+    if cfg.router == "sigmoid":
+        probs = torch.sigmoid(logits)
+        _, idx = torch.sort(probs + bias.float(), dim=-1,
+                            descending=True, stable=True)
+        eids = idx[..., :cfg.top_k]
+        gates = probs.gather(-1, eids)
+        gates = gates / gates.sum(-1, keepdim=True) * cfg.routed_scaling
+        return gates, eids, probs
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, eids = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
@@ -252,7 +278,8 @@ def moe_ffn_global(cfg: ModelConfig, p: dict, x: torch.Tensor,
     E_loc = E // ep
     cdt = cfg.compute_dtype
     C = capacity(T, cfg, cap_factor)
-    gates, eids, _ = route(cfg, p["router"], x)                # (T, k)
+    gates, eids, _ = route(cfg, p["router"], x,
+                           p.get("router_bias"))               # (T, k)
     pos, keep = global_dispatch(cfg, eids, C, token_chunk)
     slot = torch.where(keep, eids * C + pos, E * C).reshape(-1)
     k = eids.shape[1]
@@ -284,7 +311,8 @@ def moe_ffn_global(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def shared_expert_forward(cfg: ModelConfig, p: dict,
                           x: torch.Tensor) -> torch.Tensor:
     """x (..., D) -> (..., D) in x's dtype: silu(x wg^T) * (x wu^T), down
-    through w2, scaled by sigmoid(x . gate). repro's casts: the products
+    through w2, scaled by sigmoid(x . gate) where the tree has a
+    shared_gate. repro's casts: the products
     in the promoted dtype of x and the weight, SiLU * up in f32, back to
     x's dtype for w2, the gate's sigmoid in f32.
 
@@ -296,6 +324,8 @@ def shared_expert_forward(cfg: ModelConfig, p: dict,
     hu = matmul(x, p["shared_wu"].transpose(-1, -2))
     y = (F.silu(hg.float()) * hu.float()).to(x.dtype)
     y = matmul(y, p["shared_w2"].transpose(-1, -2))
+    if "shared_gate" not in p:           # ungated (DeepSeek-V3's)
+        return y.to(x.dtype)
     g = torch.sigmoid(matmul(x, p["shared_gate"]).float())
     return (y.float() * g[..., None]).to(x.dtype)
 
@@ -346,7 +376,8 @@ def moe_decode_tp(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     G, T, D = x.shape
     E = cfg.num_experts
     C = capacity(T, cfg, cap_factor)
-    gates, eids, _ = route(cfg, p["router"], x)                # (G,T,k)
+    gates, eids, _ = route(cfg, p["router"], x,
+                           p.get("router_bias"))               # (G,T,k)
     khot = F.one_hot(eids, E).sum(-2)                          # (G,T,E)
     pos, keep, load = _dispatch_tensors(khot, torch.zeros_like(khot[:, 0]),
                                         C)
@@ -391,7 +422,8 @@ def moe_decode_ep(cfg: ModelConfig, p: dict, x: torch.Tensor,
     Cd = int(math.ceil(T * k / ep * f))
     Cd = max(4, min(T * k, -(-Cd // 4) * 4))
 
-    gates, eids, _ = route(cfg, p["router"], x)                # (G,T,k)
+    gates, eids, _ = route(cfg, p["router"], x,
+                           p.get("router_bias"))               # (G,T,k)
     # entries (T, k, tp) -> destination rank = (eid // E_loc) * tp + j
     dest = ((eids // E_loc)[..., None] * tp
             + torch.arange(tp, device=dev)).reshape(G, -1)     # (G, N)

@@ -81,6 +81,11 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
 
 def _attn_params(cfg: ModelConfig) -> int:
     D, H, K, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.dh
+    if cfg.is_mla:
+        C, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+        return (D * H * (dn + dr) + D * (C + dr) + C
+                + C * H * (dn + dv) + H * dv * D)
     n = D * H * dh + 2 * D * K * dh + H * dh * D
     if cfg.qk_norm:
         n += 2 * dh
@@ -99,7 +104,7 @@ def _expert_params(cfg: ModelConfig) -> int:
 
 def _shared_expert_params(cfg: ModelConfig) -> int:
     F = cfg.num_shared_experts * cfg.d_expert
-    return 3 * cfg.d_model * F + cfg.d_model
+    return 3 * cfg.d_model * F + (cfg.d_model if cfg.shared_gate else 0)
 
 
 def _ssm_params(cfg: ModelConfig) -> int:
@@ -142,16 +147,18 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
                   + 3 * _norm_params(cfg))
         return n
     per_layer = _attn_params(cfg) + 2 * _norm_params(cfg)
+    n += cfg.num_dense_layers * _mlp_params(cfg, cfg.d_ff)
     if cfg.is_moe:
         router = D * cfg.num_experts
+        if cfg.router == "sigmoid":
+            router += cfg.num_experts                # the correction bias
         experts = cfg.num_experts * _expert_params(cfg)
         if active_only:
             experts = cfg.top_k * _expert_params(cfg)
-        per_layer += router + experts
+        moe = router + experts
         if cfg.num_shared_experts:
-            per_layer += _shared_expert_params(cfg)
-    else:
-        per_layer += _mlp_params(cfg, cfg.d_ff)
+            moe += _shared_expert_params(cfg)
+        n += cfg.num_moe_layers * moe
     return n + L * per_layer
 
 

@@ -10,7 +10,10 @@ loop over layers stands in for repro's `lax.scan`, and
 `torch.utils.checkpoint` around each layer for its `jax.checkpoint`
 (remat: a backward pass keeps each layer's input and recomputes the rest).
 A VLM prepends its patch embeddings (`prefix_embeds`) to the tokens' and
-drops their positions from the logits, as repro does.
+drops their positions from the logits, as repro does. A latent-attention
+model (`cfg.is_mla`) runs `models/mla.py`'s unabsorbed forward, and an MoE
+model may lead with dense layers (`first_dense_layers`): `layer_views`
+gives each layer its FFN.
 
 The params may be the global tree or `core/layouts.pack_params`' stored
 form (vocab padded, rank-major experts, rank-major dense MLP): the stored
@@ -28,6 +31,7 @@ from repro_torch.models.attention import attn_forward, init_attention
 from repro_torch.models.common import (ModelConfig, apply_norm, cross_entropy,
                                        dense_init, index_tree, init_norm,
                                        matmul)
+from repro_torch.models.mla import init_mla, mla_forward
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.moe import (ExpertLayout, init_moe,
                                     make_expert_layout, moe_ffn_global)
@@ -48,14 +52,36 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, *, device) -> dict:
     layers = {
         "attn_norm": init_norm(cfg, (L,), device=device),
         "mlp_norm": init_norm(cfg, (L,), device=device),
-        "attn": init_attention(cfg, gen, L, device=device),
+        "attn": (init_mla(cfg, gen, L, device=device) if cfg.is_mla
+                 else init_attention(cfg, gen, L, device=device)),
     }
+    if cfg.num_dense_layers:
+        layers["mlp"] = init_mlp(cfg, gen, cfg.num_dense_layers,
+                                 device=device)
     if cfg.is_moe:
-        layers["moe"] = init_moe(cfg, gen, L, device)
-    else:
-        layers["mlp"] = init_mlp(cfg, gen, L, device=device)
+        layers["moe"] = init_moe(cfg, gen, cfg.num_moe_layers, device)
     p["layers"] = layers
     return p
+
+
+def layer_views(cfg: ModelConfig, layers: dict) -> list:
+    """One dict of views per layer of a stacked layer tree: the norms and
+    attention of layer li, and its FFN, `mlp` (stacked over the
+    num_dense_layers leading layers) or `moe` (stacked over the
+    num_moe_layers that follow). A layer holds exactly one of the two, so
+    the FFN kind of each layer is fixed here, once."""
+    L = layers["attn_norm"]["scale"].shape[0]
+    n_dense = cfg.first_dense_layers if cfg.is_moe else L
+    shared = {k: v for k, v in layers.items() if k not in ("mlp", "moe")}
+    out = []
+    for li in range(L):
+        lp = index_tree(shared, li)
+        if li < n_dense:
+            lp["mlp"] = index_tree(layers["mlp"], li)
+        else:
+            lp["moe"] = index_tree(layers["moe"], li - n_dense)
+        out.append(lp)
+    return out
 
 
 def mlp_global(mlp: dict, lead: int = 0) -> dict:
@@ -80,14 +106,20 @@ def block_forward(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
                   cap_factor: float | None = None, return_kv: bool = False):
     """One transformer block on global math. x (B,S,D)."""
     h = apply_norm(cfg, x, lp["attn_norm"])
-    attn_out = attn_forward(cfg, lp["attn"], h, causal=causal, rope=rope,
-                            q_offset=q_offset, kv_ctx=kv_ctx,
-                            return_kv=return_kv)
+    if cfg.is_mla:
+        if kv_ctx is not None or return_kv or not (causal and rope):
+            raise NotImplementedError("latent attention: the causal "
+                                      "roped forward only")
+        attn_out = mla_forward(cfg, lp["attn"], h, q_offset=q_offset)
+    else:
+        attn_out = attn_forward(cfg, lp["attn"], h, causal=causal,
+                                rope=rope, q_offset=q_offset, kv_ctx=kv_ctx,
+                                return_kv=return_kv)
     if return_kv:
         attn_out, kv = attn_out
     x = x + attn_out.to(x.dtype)
     h = apply_norm(cfg, x, lp["mlp_norm"])
-    if cfg.is_moe:
+    if "moe" in lp:
         B, S, D = h.shape
         y = moe_ffn_global(cfg, lp["moe"], h.reshape(B * S, D), lay,
                            cap_factor=cap_factor).reshape(B, S, D)
@@ -126,8 +158,7 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     def layer(h, lp):
         return block_forward(cfg, lp, h, lay=lay, cap_factor=cap_factor)
 
-    for li in range(params["layers"]["attn_norm"]["scale"].shape[0]):
-        lp = index_tree(params["layers"], li)
+    for lp in layer_views(cfg, params["layers"]):
         if remat and torch.is_grad_enabled():
             x = checkpoint(layer, x, lp, use_reentrant=False)
         else:

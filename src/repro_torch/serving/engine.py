@@ -146,6 +146,9 @@ class SwitchRecord:
     chunks: int = 1
     delta_pages: int = 0
     plan_width: int = 0                # padded pages per KV plan row
+    kv_bytes: int = 0                  # bytes the KV move wrote, the
+                                       # copies a pooled view replicates
+                                       # included
 
 
 class MoebiusEngine:
@@ -172,6 +175,10 @@ class MoebiusEngine:
         start = get_layout(self.ecfg.start_layout)
         if start not in self.layouts:
             self.layouts = self.layouts + (start,)
+        if cfg.is_mla and any(lo.expert_full_mesh for lo in self.layouts):
+            raise NotImplementedError(
+                "latent attention (MLA) is served in the tp and ep layouts, "
+                "not in a full-mesh one (tpep)")
         self.metrics = ServeMetrics()
         self.switch_records: list[SwitchRecord] = []
         self._step_i = 0
@@ -462,7 +469,7 @@ class MoebiusEngine:
                 weights_s=st.weights_s, kv_s=st.kv_s, plan_s=st.plan_s,
                 kv_pages=st.kv_pages, live_requests=st.live_requests,
                 pause_s=st.pause_s, chunks=st.chunks,
-                plan_width=st.plan_width)
+                plan_width=st.plan_width, kv_bytes=st.kv_bytes)
         self.switch_records.append(rec)
         self.metrics.switch(rec.t, rec.direction, rec.pause_s, rec.total_s)
         if cross_world:
@@ -539,7 +546,8 @@ class MoebiusEngine:
             weights_s=st.weights_s, kv_s=st.kv_s, plan_s=st.plan_s,
             kv_pages=st.kv_pages, live_requests=st.live_requests,
             pause_s=st.pause_s, chunks=st.chunks,
-            delta_pages=st.delta_pages, plan_width=st.plan_width)
+            delta_pages=st.delta_pages, plan_width=st.plan_width,
+            kv_bytes=st.kv_bytes)
 
     def switch_in_progress(self) -> bool:
         return self.ex.switch_in_progress()

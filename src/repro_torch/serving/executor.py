@@ -170,6 +170,7 @@ class Executor:
                                      if k not in _EXPERTS}
         else:
             bare = params_global
+        if cfg.num_dense_layers:
             self._mlps = {w: mlp_rank_major(params_global["layers"]["mlp"], w)
                           for w in sorted(set(self.worlds.values()))}
         self.packs: dict[LayoutSpec, dict] = {}
@@ -308,8 +309,9 @@ class Executor:
                 "staging": nbytes((self._xstage or {}).values())}
 
     def mlp_bytes(self) -> dict:
-        """Device bytes of a dense model's rank-major MLP, per world ({}
-        for an MoE model)."""
+        """Device bytes of the rank-major dense MLP, per world: a dense
+        model's, or an MoE model's leading dense layers' ({} for an MoE
+        model without them)."""
         return {w: sum(t.numel() * t.element_size() for t in m.values())
                 for w, m in self._mlps.items()}
 

@@ -4,11 +4,16 @@ Each rank owns ONE flat element pool; the EP and TP layouts are *views*
 (reshapes) of the same bytes:
 
   flat:    (Dd, G, NE)
-  EP view: (Dd, G, L, 2, pages_ep, page, K,  dh)   pages per rank
-  TP view: (Dd, G, L, 2, pages_tp, page, Kl, dh)   pages shared across the
+  EP view: (Dd, G, L, P, pages_ep, page, K,  dh)   pages per rank
+  TP view: (Dd, G, L, P, pages_tp, page, Kl, dh)   pages shared across the
                                                     group, head-sliced per rank
 
 pages_tp = pages_ep * K // Kl, so both views cover exactly NE elements.
+P, the planes, is 2 (K and V) or, for latent attention, 1: one latent
+"KV head" (K = 1) of dh = kv_lora_rank + qk_rope_head_dim, read as K and,
+through its first kv_lora_rank columns, as V (`ModelConfig.kv_planes`,
+`kv_dim`). With one KV head every TP rank holds the whole latent
+(kv_rep = G), so TP's pool holds 1/G of EP's tokens.
 Page 0 of every view is the NULL page: inactive slots write there.
 
 `copy_pages` is the prefix cache's copy-on-write page mover (repro's
@@ -34,26 +39,39 @@ class CacheConfig:
     max_pages_per_req: int = 32   # block-table width
 
     def nelems(self, cfg: ModelConfig, G: int) -> int:
-        return (num_kv_layers(cfg) * 2 * self.pages_ep * self.page_size
-                * cfg.num_kv_heads * cfg.dh)
+        return (num_kv_layers(cfg) * cfg.kv_planes * self.pages_ep
+                * self.page_size * cfg.num_kv_heads * cfg.kv_dim)
 
     def pages_tp(self, cfg: ModelConfig, G: int) -> int:
         return self.pages_ep * cfg.num_kv_heads // group_info(cfg, G).kv_local
 
     def view_shape(self, cfg: ModelConfig, G: int, layout: str) -> tuple:
         """Per-rank shape of the flat pool under `layout`'s KV view."""
-        L = num_kv_layers(cfg)
+        L, P = num_kv_layers(cfg), cfg.kv_planes
         if get_layout(layout).kv_view == "ep":
-            return (L, 2, self.pages_ep, self.page_size,
-                    cfg.num_kv_heads, cfg.dh)
-        return (L, 2, self.pages_tp(cfg, G), self.page_size,
-                group_info(cfg, G).kv_local, cfg.dh)
+            return (L, P, self.pages_ep, self.page_size,
+                    cfg.num_kv_heads, cfg.kv_dim)
+        return (L, P, self.pages_tp(cfg, G), self.page_size,
+                group_info(cfg, G).kv_local, cfg.kv_dim)
 
     def capacity_tokens(self, cfg: ModelConfig, G: int, layout: str) -> int:
         """Group-wide token capacity (excluding the null pages)."""
         if get_layout(layout).kv_view == "ep":
             return G * (self.pages_ep - 1) * self.page_size
         return (self.pages_tp(cfg, G) - 1) * self.page_size
+
+
+def page_bytes_written(cfg: ModelConfig, cc: CacheConfig, G: int,
+                       layout) -> int:
+    """Bytes that moving one page into `layout`'s view writes, over every
+    KV layer and plane: the whole page into its owner's pool under the
+    per-rank (EP) view; under a pooled (TP) view every rank writes its own
+    head slice, so a KV head replicated kv_rep times (MLA's latent: G
+    times) is written that many times."""
+    L, P, _, page, K, dh = cc.view_shape(cfg, G, layout)
+    writers = 1 if get_layout(layout).kv_per_rank else G
+    return (L * P * page * K * dh * writers
+            * torch.finfo(cfg.param_dtype).bits // 8)
 
 
 def num_kv_layers(cfg: ModelConfig) -> int:
@@ -112,16 +130,17 @@ def copy_pages(kv: torch.Tensor, cfg: ModelConfig, cc: CacheConfig,
     private pool); pooled views: every rank copies its head slice of the
     pages, with one index shared over the stacked G dim.
 
-    The buffer is viewed as (R = L * 2, pages, M = page * K_view * dh) rows
+    The buffer is viewed as (R = L * planes, pages, M = page * K_view * dh)
+    rows
     and moved by `gather_pages_rows` then `scatter_pages_rows`: the plain
     versions on a CPU tensor, the kv_pack kernels on a CUDA one. Returns
     `kv`."""
     G = kv.shape[0]
     spec = get_layout(layout)
-    L, two, pages, page, K, dh = cc.view_shape(cfg, G, spec)
+    L, P, pages, page, K, dh = cc.view_shape(cfg, G, spec)
     src, dst = _cow_index(pairs, pages)
-    rows = (kv[pool].view(L * two, pages, page * K * dh) if spec.kv_per_rank
-            else kv.view(G, L * two, pages, page * K * dh))
+    rows = (kv[pool].view(L * P, pages, page * K * dh) if spec.kv_per_rank
+            else kv.view(G, L * P, pages, page * K * dh))
     idx = torch.tensor([src, dst], dtype=torch.int32)
     if kv.is_cuda:
         # pinned, so the upload does not wait for the card's queued work

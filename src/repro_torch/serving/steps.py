@@ -39,15 +39,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.layouts import (LayoutSpec, attn_rank_major,
-                                      get_layout, shared_rank_major)
+                                      get_layout, mla_pack,
+                                      shared_rank_major)
 from repro_torch.distributed import ranks
 from repro_torch.kernels.dispatch import require_device
-from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                     paged_mla)
 from repro_torch.models.common import (ModelConfig, apply_norm, apply_rope,
-                                       index_tree, matmul, rmsnorm,
-                                       rope_cos_sin)
+                                       matmul, rmsnorm, rope_cos_sin)
+from repro_torch.models.mla import (absorb_query, mla_latent, mla_out,
+                                    mla_query, softmax_scale)
 from repro_torch.models.mlp import activate
 from repro_torch.models.moe import moe_decode_ep, moe_decode_tp
+from repro_torch.models.transformer import layer_views
 from repro_torch.serving.kvcache import CacheConfig
 
 NEG_INF = -1e30
@@ -72,15 +76,18 @@ def build_decode_pack(cfg: ModelConfig, params: dict, layout: str, G: int):
     pack = {"embed": params["embed"], "final_norm": params["final_norm"]}
     if "lm_head" in params:
         pack["lm_head"] = params["lm_head"]
+    if spec.dense_tp:
+        attn = attn_rank_major(cfg, lp["attn"], G)
+    else:
+        attn = mla_pack(cfg, lp["attn"]) if cfg.is_mla else lp["attn"]
     pack["layers"] = {
         "attn_norm": lp["attn_norm"], "mlp_norm": lp["mlp_norm"],
-        "attn": (attn_rank_major(cfg, lp["attn"], G) if spec.dense_tp
-                 else lp["attn"]),
+        "attn": attn,
     }
     if cfg.is_moe:
         pack["layers"]["moe"] = (shared_rank_major(lp["moe"], G)
                                  if spec.expert_kind == "tp" else lp["moe"])
-    else:
+    if "mlp" in lp:
         pack["layers"]["mlp"] = lp["mlp"]
     return pack
 
@@ -89,10 +96,10 @@ def _squeeze_pack(cfg, spec: LayoutSpec, pack: dict) -> dict:
     """repro squeezes the rank dim (local size 1 inside shard_map) out of
     the per-rank tensors. Here ranks stay stacked; what comes apart is the
     layer dim: one dict of views per layer, for the Python layer loop that
-    takes the place of `lax.scan`."""
-    L = pack["layers"]["attn_norm"]["scale"].shape[0]
+    takes the place of `lax.scan`, each with its own FFN (`mlp` or `moe`,
+    fixed here: `transformer.layer_views`)."""
     out = dict(pack)
-    out["layers"] = [index_tree(pack["layers"], li) for li in range(L)]
+    out["layers"] = layer_views(cfg, pack["layers"])
     return out
 
 
@@ -164,18 +171,43 @@ def _project_heads(cfg, ap, x, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _write_pages(pool_l, k, v, page_ids, slots) -> None:
-    """pool_l (G, 2, pages, page, Kh, dh) view of the KV buffer; k/v
-    (G, bs, S, Kh, dh); page_ids/slots (G, bs, S). Writes IN PLACE. Dead
-    slots and invalid tail tokens all land on the null page 0, whose
-    content is never read unmasked (C5 in ROADMAP.md)."""
-    G = k.shape[0]
+def _write_pages(pool_l, planes, page_ids, slots) -> None:
+    """pool_l (G, P, pages, page, Kh, dh) view of the KV buffer; planes:
+    P tensors (G, bs, S, Kh, dh), K and V (or MLA's one latent);
+    page_ids/slots (G, bs, S). Writes IN PLACE. Dead slots and invalid
+    tail tokens all land on the null page 0, whose content is never read
+    unmasked (C5 in ROADMAP.md)."""
+    G = planes[0].shape[0]
     pid = page_ids.reshape(G, -1)
     sl = slots.reshape(G, -1)
     gi = torch.arange(G, device=pid.device)[:, None].expand_as(pid)
-    for i, t in enumerate((k, v)):
+    for i, t in enumerate(planes):
         pool_l[:, i][gi, pid, sl] = t.reshape(G, pid.shape[1],
                                               *t.shape[3:]).to(pool_l.dtype)
+
+
+def _mla_attend(cfg, ap, hn, cos, sin, pool_l, page_ids, slots, bt,
+                kv_total, q_offset) -> torch.Tensor:
+    """Latent attention's absorbed path for one layer: hn (G, bs, S, D)
+    -> (G, bs * S, Hl * v) before wo. The latent [c_kv | k_pe] of the
+    chunk is written into the one-plane pool first; the query's nope part
+    goes through W_UK into the latent space beside its roped part; kernel
+    #1's MLA path attends over the latent (K = the whole latent, V = its
+    first kv_lora_rank columns, scale 1/sqrt(nope + rope)), and the
+    latent output goes through W_UV. ap: rank-major (G, ...) head slices
+    under TP (wkv_a and kv_norm replicated), replicated under EP."""
+    G, bs, S, D = hn.shape
+    T, C = bs * S, cfg.kv_lora_rank
+    xf = hn.reshape(G, T, D)
+    cs, sn = cos.reshape(G, T, -1), sin.reshape(G, T, -1)
+    q_nope, q_pe = mla_query(cfg, ap, xf, cs, sn)          # (G, T, Hl, .)
+    lat = mla_latent(cfg, ap, xf, cs, sn)                  # (G, T, C + dr)
+    _write_pages(pool_l, (lat.reshape(G, bs, S, 1, -1),), page_ids, slots)
+    qa = absorb_query(q_nope, q_pe, ap["w_uk_t"])
+    out = paged_mla(qa.reshape(G, bs, S, -1, qa.shape[-1]),
+                    pool_l[:, 0, :, :, 0], bt, kv_total, q_offset=q_offset,
+                    v_dim=C, scale=softmax_scale(cfg))
+    return mla_out(out.reshape(G, T, -1, C), ap["w_uv"])
 
 
 def _ffn(cfg, lpk, h_flat, spec: LayoutSpec, lay_exp, trim: bool):
@@ -184,8 +216,8 @@ def _ffn(cfg, lpk, h_flat, spec: LayoutSpec, lay_exp, trim: bool):
     static capacity (no host read: the decode kinds, which run as CUDA
     graphs); trim=True at the step's largest load (the eager prefill-chunk
     steps). A dense MLP reads no device value on the host either way."""
-    if not cfg.is_moe:
-        mlp = lpk["mlp"]                 # this layer's (G, ...) width slices
+    mlp = lpk.get("mlp")                 # this layer's (G, ...) width slices
+    if mlp is not None:
         if spec.dense_tp:
             return ranks.psum(matmul(activate(cfg, h_flat, mlp),
                                      mlp["w_down"]))
@@ -336,7 +368,7 @@ def _chunk_core(cfg, spec: LayoutSpec, pack, pools, tokens, positions,
         pidx = (pos_mat // page).clamp(0, maxp - 1)
         in_chunk = torch.arange(Sq, device=dev) < valid_len[d][..., None]
         page_ids = torch.where(in_chunk, torch.gather(bts[d], 2, pidx), 0)
-        cos, sin = rope_cos_sin(pos_mat, cfg.dh, cfg.rope_theta)
+        cos, sin = rope_cos_sin(pos_mat, cfg.rope_dim, cfg.rope_theta)
         geo.append((page_ids, pos_mat % page, positions[d] + valid_len[d],
                     cos, sin))
 
@@ -348,11 +380,16 @@ def _chunk_core(cfg, spec: LayoutSpec, pack, pools, tokens, positions,
             page_ids, slots, kv_total, cos, sin = geo[d]
             pool_l = pools[d][:, li]
             hn = apply_norm(cfg, h, lpk["attn_norm"])
-            q, k, v = _project_heads(cfg, lpk["attn"], hn, cos, sin)
-            _write_pages(pool_l, k, v, page_ids, slots)
-            attn = paged_attention(q, pool_l[:, 0], pool_l[:, 1], bts[d],
-                                   kv_total, q_offset=positions[d],
-                                   window=cfg.sliding_window)
+            if cfg.is_mla:
+                attn = _mla_attend(cfg, lpk["attn"], hn, cos, sin, pool_l,
+                                   page_ids, slots, bts[d], kv_total,
+                                   positions[d])
+            else:
+                q, k, v = _project_heads(cfg, lpk["attn"], hn, cos, sin)
+                _write_pages(pool_l, (k, v), page_ids, slots)
+                attn = paged_attention(q, pool_l[:, 0], pool_l[:, 1], bts[d],
+                                       kv_total, q_offset=positions[d],
+                                       window=cfg.sliding_window)
             attn = attn.reshape(G, bs * Sq, -1) @ lpk["attn"]["wo"]
             if spec.dense_tp:       # heads are sharded -> partial outputs
                 attn = ranks.psum(attn)

@@ -378,7 +378,7 @@ def build_hybrid_serve_step(cfg: ModelConfig, mesh, layout: str,
                 pool_g = pool[:, g]
                 hn = apply_norm(cfg, x[:, :, None], sp["attn_norm"])
                 q, kk, vv = _project_heads(cfg, sp["attn"], hn, cos, sin)
-                _write_pages(pool_g, kk, vv, page_ids, slots)
+                _write_pages(pool_g, (kk, vv), page_ids, slots)
                 at = paged_attention(q, pool_g[:, 0], pool_g[:, 1], bt,
                                      kv_total, q_offset=pos, window=0)
                 at = at.reshape(G, bs, -1) @ sp["attn"]["wo"]
@@ -507,7 +507,7 @@ def build_encdec_serve_step(cfg: ModelConfig, mesh, layout: str,
                 pool_l = pool[:, li]
                 hn = apply_norm(cfg, x, lp["attn_norm"])
                 q, kk, vv = _project_heads(cfg, lp["attn"], hn, None, None)
-                _write_pages(pool_l, kk, vv, page_ids, slots)
+                _write_pages(pool_l, (kk, vv), page_ids, slots)
                 at = paged_attention(q, pool_l[:, 0], pool_l[:, 1], bt,
                                      kv_total, q_offset=pos, window=0)
                 at = at.reshape(G, bs * Sq, -1) @ lp["attn"]["wo"]

@@ -37,8 +37,11 @@ row's input read and output written (I wide from the SwiGLU epilogue),
 and 2 x rows x D x W FLOPs. On a
 card the kernel adds them itself (csrc/moe_gemm.cu, into `gmm_work`, one
 float64 pair on the device, inside the captured graphs too: no launch of
-its own); the plain path counts the same (`count_gmm`). The pairs belong
-to the module, one a device, made once and never freed: a captured graph
+its own); the plain path counts the same (`count_gmm`). Kernel #1's
+latent-attention path counts `mla.bytes` and `mla.flops` the same way
+(`mla_work`, `count_mla`): the live latent positions once per batch row,
+q in and out once, 2 (dk + dv) FLOPs per visible (head, position) pair.
+The pairs belong to the module, one a device, made once and never freed: a captured graph
 adds to the address it was captured with, whichever tracer is on later,
 or none. A graph captured with tracing off adds nothing; `read_device()`
 reads nothing while such a replay went uncounted since the last
@@ -237,6 +240,8 @@ class Tracer:
 
 # the grouped GEMM's device counters: device -> (2,) float64 [bytes, FLOPs]
 _WORK: dict = {}
+# kernel #1's latent-attention path's, the same form
+_MLA_WORK: dict = {}
 # replays of graphs captured with tracing off, made while it was on, since
 # the last reset_device()
 _uncounted = 0
@@ -324,21 +329,52 @@ def prepare(device) -> None:
     captured: a capture must find them at their address)."""
     if _T is not None and torch.device(device).type != "meta":
         gmm_work(device)
+        mla_work(device)
+
+
+def _counter(table: dict, device) -> torch.Tensor:
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    g = table.get(d)
+    if g is None:
+        if d.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("tracing: enable() before the engine is "
+                               "built (a graph is being captured)")
+        g = table[d] = torch.zeros(2, dtype=torch.float64, device=d)
+    return g
 
 
 def gmm_work(device) -> torch.Tensor:
     """The (2,) float64 counter [bytes, FLOPs] on `device` that the grouped
     GEMM kernel adds its work to (csrc/moe_gemm.cu)."""
-    d = torch.device(device)
-    if d.type == "cuda" and d.index is None:
-        d = torch.device("cuda", torch.cuda.current_device())
-    g = _WORK.get(d)
-    if g is None:
-        if d.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("tracing: enable() before the engine is "
-                               "built (a graph is being captured)")
-        g = _WORK[d] = torch.zeros(2, dtype=torch.float64, device=d)
-    return g
+    return _counter(_WORK, device)
+
+
+def mla_work(device) -> torch.Tensor:
+    """The (2,) float64 counter [bytes, FLOPs] on `device` that kernel #1's
+    latent-attention path adds its work to (csrc/paged_attention.cu,
+    paged_mla_kernel)."""
+    return _counter(_MLA_WORK, device)
+
+
+def count_mla(kv_lens: torch.Tensor, q_offset: torch.Tensor, Sq: int,
+              H: int, dk: int, dv: int, elem: int) -> None:
+    """The plain path's count of what paged_mla_kernel counts itself, for
+    one call over (G, B) rows of Sq queries of H heads: the live latent
+    positions min(kv_len, q_offset + Sq) once per row, dk wide; q in dk
+    and out dv wide for every (query, head); 2 (dk + dv) FLOPs per head
+    and visible (query, position) pair, min(kv_len, q_offset + i + 1)
+    positions for query i."""
+    kl = kv_lens.to(torch.float64)
+    qo = q_offset.to(torch.float64)
+    i = torch.arange(1, Sq + 1, dtype=torch.float64, device=kl.device)
+    vis = torch.minimum(kl[..., None], qo[..., None] + i).clamp(min=0)
+    live = torch.minimum(kl, qo + Sq).clamp(min=0)
+    acc = mla_work(kv_lens.device)
+    acc[0] += (live * (dk * elem)).sum() + kl.numel() * Sq * H * (dk + dv) \
+        * elem
+    acc[1] += vis.sum() * (2 * (dk + dv) * H)
 
 
 def count_gmm(x: torch.Tensor, w: torch.Tensor, counts,
@@ -370,15 +406,16 @@ def replayed_uncounted() -> None:
 def reset_device() -> None:
     global _uncounted
     _uncounted = 0
-    for g in _WORK.values():
+    for g in list(_WORK.values()) + list(_MLA_WORK.values()):
         g.zero_()
 
 
 def read_device() -> dict:
     """`gmm.bytes` and `gmm.flops` since the last reset, summed over the
-    devices (a host read: call it after a synchronisation); {} before any
-    device counter, or if a graph captured with tracing off replayed while
-    it was on (its work went uncounted)."""
+    devices (a host read: call it after a synchronisation), and beside them
+    `mla.bytes` and `mla.flops` where the latent-attention path did some
+    work; {} before any device counter, or if a graph captured with tracing
+    off replayed while it was on (its work went uncounted)."""
     if not _WORK:
         return {}
     if _uncounted:
@@ -388,4 +425,10 @@ def read_device() -> dict:
         return {}
     tot = torch.stack([g.cpu() for g in _WORK.values()]).sum(0)
     nbytes, flops = tot.tolist()
-    return {"gmm.bytes": nbytes, "gmm.flops": flops}
+    out = {"gmm.bytes": nbytes, "gmm.flops": flops}
+    if _MLA_WORK:
+        mb, mf = torch.stack([g.cpu() for g in _MLA_WORK.values()]).sum(0) \
+            .tolist()
+        if mb:
+            out["mla.bytes"], out["mla.flops"] = mb, mf
+    return out

@@ -51,6 +51,9 @@ def build_train_step(cfg: ModelConfig, layout: str, G: int, *,
     along B, their fp32 gradients and losses summed and divided by the
     count (repro's `lax.scan`). init_fn(seed) -> (params, opt_state): the
     port's seeded `init_params` on `device`, packed for `layout`."""
+    if cfg.is_mla:
+        raise NotImplementedError("training a latent-attention (MLA) model "
+                                  "is not supported: the port serves it")
     opt = opt or AdamWConfig()
     dev = require_device(device)
     lay = (get_layout(layout).expert_layout(cfg, G, expert_G)

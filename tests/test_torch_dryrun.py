@@ -241,8 +241,9 @@ def repro_lowered(repro_procs):
 
 
 def _archs():
-    from repro_torch.configs import ARCHS
-    return list(ARCHS)
+    """The port's configurations that repro has too."""
+    from repro_torch.configs import ARCHS, PORT_ONLY
+    return [a for a in ARCHS if a not in PORT_ONLY]
 
 
 # ---------------------------------------------------------------------------
@@ -390,7 +391,8 @@ STEP_CASES = [("tiny_moe", "tp", 1), ("tiny_moe", "ep", 1),
               ("tiny_moe", "tpep", 1), ("tiny_moe", "ep", 6),
               ("tiny_moe", "tpep", 6), ("tiny_dense", "tp", 1),
               ("tiny_dense", "ep", 6), ("qwen2-moe-a2.7b", "ep", 1),
-              ("qwen2-moe-a2.7b", "tp", 6)]
+              ("qwen2-moe-a2.7b", "tp", 6), ("moonlight-16b-a3b", "ep", 1),
+              ("moonlight-16b-a3b", "tp", 6)]
 
 
 @pytest.mark.parametrize("name,layout,Sq", STEP_CASES)
@@ -428,6 +430,37 @@ def test_meta_step_matches_cpu_step(name, layout, Sq):
     assert [[list(t.shape), str(t.dtype)] for t in out] == rec["outputs"]
     assert dict(tally["counts"]) == rec["hlo_collectives"]["calls_traced"]
     assert out[1] is args[0]                           # the pool, in place
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_moonlight_dry_run_tallies_the_mla_path(kind):
+    """moonlight-16b-a3b at full width, traced on `meta` (a small shape of
+    each serve kind, mesh (1, 2), tp and ep): every layer stands in for
+    #1's MLA path, whose tally is its worst case (every page live), and
+    nothing launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.paged_attention.ops import mla_worst_case_work
+    from repro_torch.launch.dryrun import MeshShape, lower
+    cfg = get_config("moonlight-16b-a3b")
+    S, B = (64, 4) if kind == "prefill" else (256, 8)
+    dispatch.reset_counts()
+    for lo in ("tp", "ep"):
+        rec = lower(cfg, ShapeSpec("small", S, B, kind),
+                    MeshShape({"data": 1, "model": 2}), lo, page=16)
+        assert rec["status"] == "ok", (lo, rec)
+        k = rec["cost_analysis"]["kernels"]["paged_attention"]
+        assert k["calls"] == cfg.num_layers
+        assert k["flops"] > 0 and k["bytes"] > 0
+    assert sum(dispatch.COUNTS.values()) == 0
+    # the tally's arithmetic: every key live, queries at the end
+    flops, nb = mla_worst_case_work(2, 3, 4, 16, 576, 512, 5, 16, 2)
+    kv = 5 * 16
+    keys = sum(min(kv, kv - 4 + i + 1) for i in range(4))
+    assert flops == 2 * (576 + 512) * 16 * keys * 2 * 3
+    assert nb == (2 * 3 * 4 * 16 * (576 + 512) * 2 + 2 * 3 * kv * 576 * 2
+                  + 4 * (2 * 3 * 5 + 2 * 2 * 3))
 
 
 def test_meta_calls_launch_nothing():
